@@ -1,0 +1,156 @@
+#!/usr/bin/env python3
+"""Where the time of the PyTorch/CUDA port's main path goes, on one GPU.
+
+    python3 tools/torch_profile_main_path.py [--batch 1024] [--reps 3] [--no-trace]
+
+Loads fixtures/sem_zk20b64.npz, tiles it to the batch, and on the card
+
+  * times the three stages of `verify_batched` apart (host clock around work
+    that ends in torch.cuda.synchronize()): transcript (public-input hash +
+    Fiat-Shamir replay), vanishing polynomial + quotient check, FRI (leaf
+    hashes, Merkle walks, DEEP quotients, folds, final polynomial);
+  * traces one whole call with torch.profiler and sums the device time by
+    kernel: how many device kernels one batch launches, how long the device
+    is busy, its idle share of the (untraced) batch time, and the share of
+    the hand-written Poseidon kernel.
+
+Prints one JSON line per part. Needs a CUDA device; there is no CPU mode.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from stark_verifier_tpu_torch.core import verifier as V  # noqa: E402
+from stark_verifier_tpu_torch.core import verifier_batched as VB  # noqa: E402
+from stark_verifier_tpu_torch.core.rings import ExtRing  # noqa: E402
+from stark_verifier_tpu_torch.core.types import load_proofs  # noqa: E402
+from stark_verifier_tpu_torch.models import flagship as FS  # noqa: E402
+from stark_verifier_tpu_torch.ops import ext2, gl64  # noqa: E402
+from stark_verifier_tpu_torch.ops import poseidon_gl as pg  # noqa: E402
+from stark_verifier_tpu_torch.ops import poseidon_kernel as pk  # noqa: E402
+
+
+def staged(F, common, vk_cap, digest, pa):
+    """verify_batched with a synchronise and a clock between its stages;
+    returns (accept bits, seconds by stage, kernel launches by stage)."""
+    def tick():
+        torch.cuda.synchronize()
+        return time.perf_counter(), pk.LAUNCHES
+
+    R = ExtRing(F)
+    B = pa["public_inputs"].shape[0]
+    perm = V._perm_for(F, common)
+    t0 = tick()
+    pi_hash = pg.hash_no_pad(F, V._scalar_list(F, pa["public_inputs"]), shape=(B,))
+    ch = VB._get_challenges_batched(F, common, pa, pi_hash, digest, B, perm)
+    t1 = tick()
+    vanishing, zeta_pow_deg = V.eval_vanishing_poly(F, common, ch, pa, pi_hash)
+    ok = None
+    z_h_zeta = R.sub(zeta_pow_deg, R.one())
+    quotient_list = V._ext_list(F, pa["open_quotient_polys"])
+    qdf = common.quotient_degree_factor
+    for i in range(common.config.num_challenges):
+        recombined = R.reduce_with_powers(
+            zeta_pow_deg, quotient_list[i * qdf : (i + 1) * qdf])
+        eq = ext2.equal(F, vanishing[i], R.mul(z_h_zeta, recombined))
+        ok = eq if ok is None else (ok & eq)
+    t2 = tick()
+    reduced = [ext2.reduce_with_powers(F, ch.fri_alpha, b)
+               for b in V._opening_batches(F, pa)]
+    g_zeta = F.const(V._g_pow(V.ORDER >> common.degree_bits))
+    zeta_next = ext2.scalar_mul(F, ch.plonk_zeta, g_zeta)
+    ok = VB._verify_fri_batched(F, common, ch, pa, vk_cap, reduced,
+                                ch.plonk_zeta, zeta_next, ok, B, perm)
+    t3 = tick()
+    names = ("transcript", "vanishing", "fri")
+    marks = (t0, t1, t2, t3)
+    secs = {n: marks[i + 1][0] - marks[i][0] for i, n in enumerate(names)}
+    launches = {n: marks[i + 1][1] - marks[i][1] for i, n in enumerate(names)}
+    return ok, secs, launches
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--batch", type=int, default=1024)
+    ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--no-trace", action="store_true",
+                    help="skip the torch.profiler pass")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("no CUDA device: this tool measures the GPU only")
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi}))
+
+    proofs, common, vk = load_proofs(REPO / "fixtures" / "sem_zk20b64.npz")
+    while len(proofs) < args.batch:
+        proofs = proofs + proofs
+    fn, to_device = FS.make_verifier_fn_batched(common, vk)
+    pa = to_device(FS.batched_arrays(proofs[: args.batch]))
+    F = gl64.Field("cuda")
+    vk_cap = F.from_u64(vk.constants_sigmas_cap)
+    digest = F.from_u64(vk.circuit_digest)
+    assert bool(fn(pa).all())  # warm-up: builds and loads the kernel
+
+    runs = []
+    for _ in range(args.reps):
+        ok, secs, launches = staged(F, common, vk_cap, digest, pa)
+        assert bool(ok.all())
+        runs.append(secs)
+    med = {k: float(np.median([r[k] for r in runs])) * 1e3 for k in runs[0]}
+    print(json.dumps({"part": "stages", "batch": args.batch, "reps": args.reps,
+                      "ms_median": med, "ms_total": sum(med.values()),
+                      "poseidon_permute_launches": launches}))
+
+    if args.no_trace:
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ok = fn(pa)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    # key_averages() lists a device kernel twice: once under its own name
+    # (device_type CUDA) and once as device time of the op that launched it.
+    # Only the first kind is summed.
+    from torch.autograd import DeviceType
+
+    dev = [(e.key, e.count, e.self_device_time_total) for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(t for _, _, t in dev) / 1e3
+    if busy_ms == 0:
+        print(json.dumps({"part": "trace", "device_time": "not measured",
+                          "why": "the profiler reported no device kernel"}))
+        return
+    poseidon = [d for d in dev if "poseidon_permute" in d[0]]
+    top = sorted(dev, key=lambda d: -d[2])[:8]
+    print(json.dumps({
+        "part": "trace", "batch": args.batch, "wall_ms_traced": wall_ms,
+        "device_kernels": sum(c for _, c, _ in dev),
+        "device_busy_ms": busy_ms,
+        # the trace slows the host down many times over, so the idle share
+        # is taken against the untraced batch time measured above
+        "untraced_ms": sum(med.values()),
+        "device_idle_share": 1 - busy_ms / sum(med.values()),
+        "poseidon_permute_ms": sum(t for _, _, t in poseidon) / 1e3,
+        "poseidon_permute_count": sum(c for _, c, _ in poseidon),
+        "top_kernels_ms": [[k[:60], c, t / 1e3] for k, c, t in top]}))
+
+
+if __name__ == "__main__":
+    main()
