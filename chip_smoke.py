@@ -6,19 +6,31 @@
 needs one CUDA card (built for Hopper, sm_90a), `nvcc`, and no network. It
 
   1. names the device;
-  2. builds every hand-written kernel from the sources in this checkout;
+  2. builds every hand-written kernel from the sources in this checkout
+     (one nvcc a source, all started together);
   3. holds each kernel against its plain PyTorch version on the card, at the
-     lane counts the main path gives it (exact equality: this is modular
-     arithmetic), and times both;
+     lane counts the paths give it and, for the two rate probes, on the
+     card-filling tensors they are timed on (exact equality: this is modular
+     arithmetic; the one float chain of the rate probe has a stated
+     tolerance), the three Poseidon kernels against each other too, and
+     times them; the probes' launches are counted over their timed loop,
+     which is their path: no verifier path launches them, and that is
+     checked;
   4. drives the main path: 64 distinct zero-knowledge Semaphore proofs
      (2^20-member set, 135 wires, 28 FRI queries) tiled to a batch of 1024,
      through load_proofs -> batched_arrays -> make_verifier_fn_batched on
-     the card; checks that all are accepted, that corrupted lanes and only
-     those are rejected, that the kernel's launch count equals the number of
-     permutation calls the path makes, and that challenges and accept bits
-     equal the same path run with the plain permutation on the card and on
-     the CPU;
-  5. prints one JSON line per phase, the kernels' line, and as the last line
+     the card, once per Poseidon kernel variant (mxu = 0, 1, 2); checks that
+     all are accepted, that corrupted lanes and only those are rejected,
+     that the selected kernel's launch count equals the number of
+     permutation calls the path makes and the other kernels' is 0, that
+     accept bits and challenges are equal across the variants, and that
+     they equal the same path run with the plain permutation on the card
+     and on the CPU;
+  5. drives the per-proof entry points (make_verifier_fn and
+     make_verifier_fn_phased) on the first proofs of the fixture under each
+     variant: accepted, a corrupted proof rejected, bits equal to the
+     batched path's, kernels launched at 1, 28 and 112 lanes;
+  6. prints one JSON line per phase, the kernels' line, and as the last line
      {"ok": true, "device": {...}}.
 
 Any failure ends the run with a non-zero exit code and no "ok" line. There
@@ -27,6 +39,7 @@ not build, launch or agree, the script fails.
 """
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -37,10 +50,9 @@ import numpy as np
 import torch
 
 from stark_verifier_tpu_torch.core import verifier as V
-from stark_verifier_tpu_torch.core import verifier_batched as VB
 from stark_verifier_tpu_torch.core.types import load_proofs
 from stark_verifier_tpu_torch.models import flagship as FS
-from stark_verifier_tpu_torch.ops import cuda_build, gl64
+from stark_verifier_tpu_torch.ops import cuda_build, gl64, probes
 from stark_verifier_tpu_torch.ops import poseidon_gl as pg
 from stark_verifier_tpu_torch.ops import poseidon_kernel as pk
 
@@ -54,7 +66,10 @@ SEED = 20
 # multiply-adds a second on 128 lanes per SM. The 32-bit integer pipe has 64
 # lanes per SM, so it issues half as many instructions: 16.75e12 a second.
 PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FMA_PER_S = 67e12 / 2
 PEAK_INT32_INSTR_PER_S = 67e12 / 2 / 2
+# dense tensor-core peaks of the same data sheet
+PEAK_INT8_OPS_PER_S = 1979e12
 
 # 32-bit integer instructions the permutation needs at the least, by count
 # of the algorithm (csrc/poseidon_gl.cu), one lane:
@@ -65,8 +80,25 @@ PEAK_INT32_INSTR_PER_S = 67e12 / 2 / 2
 #   round-constant add on any representative: 9, for 30 * 12 words;
 #   MDS layer: 2 * (144 + 1) wide multiply-adds + 12 recombine-and-fold of
 #     about 10 -> 410, for 30 layers.
+# The three Poseidon kernels compute one function, so they share this count
+# and one bound: the tensor-core variants are not given a lower one for
+# executing fewer integer instructions.
 INT32_INSTR_PER_PERMUTATION = 472 * 20 + 360 * 9 + 30 * 410
 BYTES_PER_PERMUTATION = 2 * 12 * 8
+
+KERNEL_FILES = {
+    "poseidon_permute": ("stark_verifier_tpu_torch/ops/csrc/poseidon_gl.cu",
+                         "stark_verifier_tpu/ops/pallas/poseidon_kernel.py:331"),
+    "poseidon_permute_mma": ("stark_verifier_tpu_torch/ops/csrc/poseidon_gl_mma.cu",
+                             "stark_verifier_tpu/ops/pallas/poseidon_kernel.py:269"),
+    "poseidon_permute_mma2": ("stark_verifier_tpu_torch/ops/csrc/poseidon_gl_mma.cu",
+                              "stark_verifier_tpu/ops/pallas/poseidon_kernel.py:311"),
+    "alu_probe": ("stark_verifier_tpu_torch/ops/csrc/probes.cu",
+                  "tools/vpu_microbench.py:46"),
+    "mma_probe": ("stark_verifier_tpu_torch/ops/csrc/probes.cu",
+                  "tools/vpu_microbench.py:128"),
+}
+PERMUTES = {m: functools.partial(pg.permute, mxu=m) for m in (0, 1, 2)}
 
 EDGES = np.array(
     [0, 1, gl64.P - 1, gl64.P, gl64.P + 1, 2**32 - 1, 2**32, 2**63, 2**64 - 1],
@@ -131,75 +163,204 @@ def phase_device():
 def phase_build():
     t0 = time.time()
     logs = cuda_build.build_all()
-    pk._library()  # load, bind, upload the constants
+    for kernel in pk.KERNELS:          # load, bind, upload the round constants
+        pk._library(pk._HOME[kernel][0])
+    probes._library()
     seconds = time.time() - t0
-    ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas = {name: [ln.strip() for ln in log.splitlines()
+                    if "registers" in ln or "spill" in ln]
+             for name, log in logs.items()}
     emit({"phase": "build", "sources": sorted(cuda_build.SOURCES.values()),
           "nvcc": cuda_build.nvcc_path(), "flags": cuda_build.NVCC_FLAGS,
           "seconds": round(seconds, 2), "ptxas": ptxas})
 
 
-def phase_kernels(device):
-    """poseidon_permute against permute_plain on the card."""
+def kernel_row(name, ms, plain_ms, t_bytes, t_ops, library_ms=None,
+               max_abs_err=0.0, **extra):
+    source, replaces = KERNEL_FILES[name]
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": 0, "max_abs_err": max_abs_err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms, "bound_bytes_ms": t_bytes,
+            "bound_operations_ms": t_ops, **extra}
+
+
+def phase_poseidon_kernels(device, rows):
+    """The three Poseidon kernels against their plain versions and against
+    each other on the card, then timed in turns."""
     rng = np.random.default_rng(SEED)
-    worst = 0
-    lane_counts = [1, 8, 1024, 28 * BATCH, 4 * 28 * BATCH]
+    lane_counts = [1, 7, 8, 28, 112, 1024, 1025, 28 * BATCH, 4 * 28 * BATCH]
     for lanes in lane_counts:
         x = gl64.from_u64(edge_state(rng, lanes), device)
-        got = pk.permute(x)
-        torch.cuda.synchronize()
-        want = pk.permute_plain(x)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            a = got.cpu().numpy().view(np.uint64).astype(object)
-            b = want.cpu().numpy().view(np.uint64).astype(object)
-            worst = max(worst, int(np.abs(a - b).max()))
-            fail(f"poseidon_permute != permute_plain at {lanes} lanes "
-                 f"(max abs difference {worst})")
-        # a trailing shape other than flat must give the same words
-        if lanes == 28 * BATCH:
-            got2 = pk.permute(x.reshape(12, BATCH, 28))
-            check(torch.equal(got2.reshape(12, -1), want),
-                  "poseidon_permute differs on a [12, B, Q] state")
+        first = None
+        for mxu, name in enumerate(pk.KERNELS):
+            got = pk.permute(x, mxu)
+            torch.cuda.synchronize()
+            want = pk.permute_plain(x, mxu)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                a = got.cpu().numpy().view(np.uint64).astype(object)
+                b = want.cpu().numpy().view(np.uint64).astype(object)
+                fail(f"{name} != permute_plain(mxu={mxu}) at {lanes} lanes "
+                     f"(max abs difference {int(np.abs(a - b).max())})")
+            first = got if first is None else first
+            check(torch.equal(got, first),
+                  f"{name} != poseidon_permute at {lanes} lanes")
+            # a trailing shape other than flat must give the same words
+            if lanes == 28 * BATCH:
+                got2 = pk.permute(x.reshape(12, BATCH, 28), mxu)
+                check(torch.equal(got2.reshape(12, -1), want),
+                      f"{name} differs on a [12, B, Q] state")
+    timed = {}
+    for lanes in lane_counts[-2:]:
+        x = gl64.from_u64(edge_state(rng, lanes), device)
+        ms = {}
+        for mxu in (0, 1, 2, 2, 1, 0):  # in turns: a drifting clock favours none
+            for _ in range(3):
+                pk.permute(x, mxu)
+            t = cuda_ms(lambda: pk.permute(x, mxu), 50)
+            ms[mxu] = min(t, ms.get(mxu, t))
+        timed[lanes] = ms
     lanes = lane_counts[-1]
-    x = gl64.from_u64(edge_state(rng, lanes), device)
-    for _ in range(3):
-        pk.permute(x)
-    ms = cuda_ms(lambda: pk.permute(x), 50)
-    pk.permute_plain(x)
-    plain_ms = cuda_ms(lambda: pk.permute_plain(x), 3)
     t_bytes = lanes * BYTES_PER_PERMUTATION / PEAK_BYTES_PER_S * 1e3
     t_ops = lanes * INT32_INSTR_PER_PERMUTATION / PEAK_INT32_INSTR_PER_S * 1e3
-    row = {
-        "name": "poseidon_permute", "route": "cuda",
-        "source": "stark_verifier_tpu_torch/ops/csrc/poseidon_gl.cu",
-        "replaces": "stark_verifier_tpu/ops/pallas/poseidon_kernel.py:331",
-        "launches": None, "max_abs_err": float(worst),
-        "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": None,  # no PyTorch call computes this function
-        "lanes": lanes, "bound_bytes_ms": t_bytes, "bound_operations_ms": t_ops,
-        "permutations_per_s": lanes / (ms * 1e-3),
-    }
-    emit({"phase": "kernels", "lane_counts": lane_counts, "equal": True,
-          "poseidon_permute": row})
-    return row
+    for mxu, name in enumerate(pk.KERNELS):
+        pk.permute_plain(x, mxu)
+        plain_ms = cuda_ms(lambda: pk.permute_plain(x, mxu), 3)
+        ms = timed[lanes][mxu]
+        # library_ms None: no PyTorch call computes this function
+        rows[name] = kernel_row(
+            name, ms, plain_ms, t_bytes, t_ops, lanes=lanes,
+            ms_at_28672_lanes=timed[lane_counts[-2]][mxu],
+            permutations_per_s=lanes / (ms * 1e-3))
+    emit({"phase": "poseidon_kernels", "lane_counts": lane_counts,
+          "equal_to_plain_and_to_each_other": True,
+          **{name: rows[name] for name in pk.KERNELS}})
+
+
+def timed_plain(fn):
+    """One call of a plain version: its result and its device time."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def phase_probes(device, rows):
+    """alu_probe (every op, one chain and four) and mma_probe (both kinds) at
+    the size that fills the card, which is the size the rate tool
+    (tools/torch_vpu_microbench.py) gives them: first held against their
+    plain versions on those tensors, then, with the probes' launch counts
+    set to 0, timed as the tool times them. The counts read after that are
+    the rows' `launches`: the probes are on no verifier path (the main path
+    and the per-proof path check that they launch none), their path is the
+    tool's timed loop."""
+    rng = np.random.default_rng(SEED + 1)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n, chain, reps, warm = sms * 2048 * 4, 512, 20, 3
+    row_op = "mad_wide_u32"   # the instruction the Poseidon kernels execute most
+    inputs = {op: probes.alu_input(op, n, rng, device) for op in probes.OPS}
+    M = torch.from_numpy(rng.integers(0, 64, (12, 12), dtype=np.uint8)).to(device)
+    cols, steps = sms * 4 * probes.MMA_BLOCK_COLS, 30
+    y = torch.from_numpy(rng.integers(0, 256, (12, cols), dtype=np.uint8)).to(device)
+
+    # ---- against the plain versions, on the tensors that are timed below
+    worst_fma, alu_plain_ms = 0.0, {}
+    for op, big in inputs.items():
+        for ilp in (1, 4):
+            got = probes.alu_probe(big, op, chain, ilp)
+            want, alu_plain_ms[op, ilp] = timed_plain(
+                lambda: probes.alu_plain(big, op, chain, ilp))
+            if op == "fma_f32":
+                # the kernel's fused multiply-add rounds once a step, the
+                # plain y * x + x twice; x < 1 makes the map a contraction,
+                # so the difference does not grow along the chain
+                check(bool(torch.isfinite(got).all())
+                      and torch.allclose(got, want, rtol=1e-5, atol=0),
+                      f"alu_probe fma_f32 ilp={ilp}: beyond rtol 1e-5")
+                worst_fma = max(worst_fma, float((got - want).abs().max()))
+            else:
+                check(torch.equal(got, want),
+                      f"alu_probe {op} ilp={ilp} differs at {n} elements")
+    want, mma_plain_ms = timed_plain(lambda: probes.mma_plain(y, M, steps))
+    for kind in probes.KINDS:
+        check(torch.equal(probes.mma_probe(y, M, kind, steps), want),
+              f"mma_probe {kind} differs from its plain version at {cols} columns")
+
+    # ---- the probes' own path: the timed loop, counted
+    reset_counts()
+    per_op = {}
+    for op, big in inputs.items():
+        for ilp in (1, 4):
+            for _ in range(warm):
+                probes.alu_probe(big, op, chain, ilp)
+            ms = cuda_ms(lambda: probes.alu_probe(big, op, chain, ilp), reps)
+            per_op[f"{op}, ilp={ilp}"] = {
+                "ms": ms, "steps_per_s": n * chain * ilp / (ms * 1e-3),
+                "plain_ms": alu_plain_ms[op, ilp]}
+    mma_ms = {}
+    for kind in probes.KINDS:
+        for _ in range(warm):
+            probes.mma_probe(y, M, kind, steps)
+        mma_ms[kind] = cuda_ms(lambda: probes.mma_probe(y, M, kind, steps), reps)
+    torch.cuda.synchronize()
+    counts = dict(probes.LAUNCHES)
+    check(counts["alu_probe"] == len(probes.OPS) * 2 * (warm + reps)
+          and counts["mma_probe"] == len(probes.KINDS) * (warm + reps),
+          f"the probes' timed loop counted {counts}")
+    check(all(c == 0 for c in pk.LAUNCHES.values()),
+          "the probes' path launched a Poseidon kernel")
+
+    # one wide multiply-add a step on the 64-lane integer pipe
+    ops = n * chain * 4
+    rows["alu_probe"] = kernel_row(
+        "alu_probe", per_op[f"{row_op}, ilp=4"]["ms"], alu_plain_ms[row_op, 4],
+        n * (4 + 8) / PEAK_BYTES_PER_S * 1e3, ops / PEAK_INT32_INSTR_PER_S * 1e3,
+        max_abs_err=worst_fma, op=row_op, ilp=4, chain=chain, elements=n,
+        tolerance="fma_f32 rtol 1e-5, every other op exact")
+    # the one PyTorch call that computes the products: torch.matmul, chained
+    # (scaled so that float32 stays finite without the mod 256)
+    Mf, yf = M.to(torch.float32) / 512, y.to(torch.float32)
+
+    def library():
+        v = yf
+        for _ in range(steps):
+            v = torch.matmul(Mf, v)
+        return v
+
+    library()
+    library_ms = cuda_ms(library, 3)
+    # the product's own work, 12 x 12 a column: the zero padding of the
+    # 16 x 16 tile is not counted
+    rows["mma_probe"] = kernel_row(
+        "mma_probe", mma_ms["u8"], mma_plain_ms,
+        2 * 12 * cols / PEAK_BYTES_PER_S * 1e3,
+        2 * 12 * 12 * cols * steps / PEAK_INT8_OPS_PER_S * 1e3,
+        library_ms=library_ms, kind="u8", columns=cols, steps=steps,
+        ms_tf32=mma_ms["tf32"])
+    for name in probes.LAUNCHES:
+        rows[name]["launches"] = counts[name]
+    emit({"phase": "probes", "compared_at": {"elements": n, "columns": cols},
+          "launches_in_timed_loop": counts, "alu_ops": per_op,
+          "alu_probe": rows["alu_probe"], "mma_probe": rows["mma_probe"]})
 
 
 def challenges_u64(F, common, digest, pa, perm):
     """Public-input hash and every Fiat-Shamir challenge as uint64 numpy."""
-    B = pa["public_inputs"].shape[0]
-    pi_hash = pg.hash_no_pad(F, V._scalar_list(F, pa["public_inputs"]),
-                             shape=(B,), permute=perm)
-    ch = VB._get_challenges_batched(F, common, pa, pi_hash, digest, B, perm)
+    batch = tuple(pa["public_inputs"].shape[:-1])
+    pi_hash, ch = V.phase_challenges(F, common, digest, pa, permute=perm,
+                                     batch=batch)
     flat = list(pi_hash)
     for name in ("plonk_betas", "plonk_gammas", "plonk_alphas",
                  "fri_query_indices"):
-        flat += getattr(ch, name)
-    flat += [*ch.plonk_zeta, *ch.fri_alpha, ch.fri_pow_response]
-    for b in ch.fri_betas:
+        flat += ch[name]
+    flat += [*ch["plonk_zeta"], *ch["fri_alpha"], ch["fri_pow_response"]]
+    for b in ch["fri_betas"]:
         flat += [*b]
     return np.stack([gl64.to_u64(t) for t in flat])
 
@@ -216,47 +377,44 @@ def corrupt(batched, lanes):
     return bad
 
 
-def phase_main_path(device, kernel_row):
+def reset_counts():
+    for counts in (pk.LAUNCHES, probes.LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def load_fixture():
     proofs, common, vk = load_proofs(FIXTURE)
-    distinct = len(proofs)
     cfg = common.config.fri_config
     check(common.config.num_wires == 135 and cfg.num_query_rounds == 28
           and common.degree_bits == 9 and common.fri_params.hiding,
           "the fixture is not the zk20 circuit")
+    return proofs, common, vk
+
+
+def phase_main_path(device, rows):
+    proofs, common, vk = load_fixture()
+    distinct = len(proofs)
+    cfg = common.config.fri_config
     while len(proofs) < BATCH:
         proofs = proofs + proofs
     proofs = proofs[:BATCH]
     batched = FS.batched_arrays(proofs)
+    F = gl64.Field(device)
+    digest = F.from_u64(vk.circuit_digest)
 
     fn, to_device = FS.make_verifier_fn_batched(common, vk)  # device="cuda"
     pa = to_device(batched)
-    torch.cuda.synchronize()
-
-    # ---- the main path, counted
-    pk.LAUNCHES = 0
-    ok = fn(pa)
-    torch.cuda.synchronize()
-    launches = pk.LAUNCHES
-    check(ok.dtype == torch.bool and tuple(ok.shape) == (BATCH,),
-          f"accept bits have shape {tuple(ok.shape)} and type {ok.dtype}")
-    check(bool(ok.all()), f"{int((~ok).sum())} honest proofs were rejected")
-    check(launches > 0, "the main path launched no poseidon_permute kernel")
-
-    # ---- corrupted lanes, and only those, are rejected
-    lanes = [3, BATCH // 10, BATCH // 2, BATCH * 7 // 10, BATCH - 24]
-    ok_bad = fn(to_device(corrupt(batched, lanes)))
-    expect = torch.ones(BATCH, dtype=torch.bool)
-    expect[lanes] = False
-    check(torch.equal(ok_bad.cpu(), expect),
-          f"rejected lanes {torch.nonzero(~ok_bad.cpu()).flatten().tolist()}, "
-          f"expected {lanes}")
-
-    # ---- the path's permutation calls, counted apart from the wrapper's
-    # count: a counting permutation handed to the same path at B = 64
-    F = gl64.Field(device)
-    digest = F.from_u64(vk.circuit_digest)
     small = {k: v[:64] for k, v in batched.items()}
     pa64 = to_device(small)
+    lanes = [3, BATCH // 10, BATCH // 2, BATCH * 7 // 10, BATCH - 24]
+    pa_bad = to_device(corrupt(batched, lanes))
+    expect = torch.ones(BATCH, dtype=torch.bool)
+    expect[lanes] = False
+    torch.cuda.synchronize()
+
+    # ---- the path's permutation calls, counted apart from the wrappers'
+    # counts: a counting permutation handed to the same path at B = 64
     calls = [0]
 
     def counting(F_, state):
@@ -266,16 +424,47 @@ def phase_main_path(device, kernel_row):
     fn_count, _ = FS.make_verifier_fn_batched(common, vk, permute=counting)
     ok64 = fn_count(pa64)
     n_calls = calls[0]
-    check(launches == n_calls,
-          f"{launches} kernel launches for {n_calls} permutation calls")
+
+    # ---- the main path once per kernel variant, counted
+    default = pk._use_mxu()
+    launches, ms_once, ch_by = {}, {}, {}
+    for mxu, name in enumerate(pk.KERNELS):
+        fn_m = fn if mxu == default else FS.make_verifier_fn_batched(
+            common, vk, permute=PERMUTES[mxu])[0]
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        ok = fn_m(pa)
+        torch.cuda.synchronize()
+        ms_once[name] = (time.perf_counter() - t0) * 1e3
+        counts = dict(pk.LAUNCHES)
+        check(ok.dtype == torch.bool and tuple(ok.shape) == (BATCH,),
+              f"accept bits have shape {tuple(ok.shape)} and type {ok.dtype}")
+        check(bool(ok.all()),
+              f"mxu={mxu}: {int((~ok).sum())} honest proofs were rejected")
+        check(counts[name] == n_calls,
+              f"mxu={mxu}: {counts[name]} launches of {name} for {n_calls} "
+              f"permutation calls")
+        check(all(c == 0 for k, c in counts.items() if k != name)
+              and not any(probes.LAUNCHES.values()),
+              f"mxu={mxu}: another kernel was launched: {counts}, {probes.LAUNCHES}")
+        launches[name] = counts[name]
+        # corrupted lanes, and only those, are rejected
+        ok_bad = fn_m(pa_bad)
+        check(torch.equal(ok_bad.cpu(), expect),
+              f"mxu={mxu}: rejected lanes "
+              f"{torch.nonzero(~ok_bad.cpu()).flatten().tolist()}, expected {lanes}")
+        ch_by[mxu] = challenges_u64(F, common, digest, pa64, PERMUTES[mxu])
+        check(np.array_equal(ch_by[mxu], ch_by[0]),
+              f"challenges differ between mxu={mxu} and mxu=0")
+    ch_kernel = ch_by[default]
 
     # ---- the same path with the plain permutation on the card, B = 64
     fn_plain, _ = FS.make_verifier_fn_batched(common, vk, permute=pg.permute_plain)
-    before = pk.LAUNCHES
+    before = dict(pk.LAUNCHES)
     ok64_plain = fn_plain(pa64)
     ch_plain = challenges_u64(F, common, digest, pa64, pg.permute_plain)
-    check(pk.LAUNCHES == before, "the plain path launched the kernel")
-    ch_kernel = challenges_u64(F, common, digest, pa64, pg.permute)
+    check(pk.LAUNCHES == before, "the plain path launched a kernel")
     check(bool(ok64.all()) and torch.equal(ok64, ok64_plain),
           "accept bits differ between the kernel's and the plain path")
     check(np.array_equal(ch_kernel, ch_plain),
@@ -295,7 +484,7 @@ def phase_main_path(device, kernel_row):
     check(np.array_equal(ch_cpu, ch_kernel[:, :4]),
           "challenges differ between the card and the CPU")
 
-    # ---- steady state
+    # ---- steady state, default variant
     reps = 5
     times = []
     for _ in range(reps):
@@ -306,18 +495,71 @@ def phase_main_path(device, kernel_row):
         times.append(time.perf_counter() - t0)
     check(bool(ok.all()), "a repetition rejected an honest proof")
     ms = float(np.median(times)) * 1e3
-    kernel_row["launches"] = launches
+    for name in pk.KERNELS:
+        rows[name]["launches"] = launches[name]
     emit({"phase": "main_path", "fixture": FIXTURE.name, "distinct": distinct,
           "batch": BATCH, "wires": common.config.num_wires,
           "queries": cfg.num_query_rounds, "degree_bits": common.degree_bits,
           "zero_knowledge": common.fri_params.hiding,
           "fold_layers": len(common.fri_params.reduction_arity_bits),
           "accepted": int(ok.sum()), "rejected_lanes": lanes,
-          "poseidon_permute_launches": launches, "permutation_calls": n_calls,
+          "launches_by_variant": launches, "permutation_calls": n_calls,
+          "equal_across_variants": True,
           "equal_to_plain_on_card": True, "equal_to_cpu": True,
+          "default_variant": pk.KERNELS[default],
           "ms_per_batch": ms, "ms_per_batch_all": [t * 1e3 for t in times],
+          "ms_one_batch_by_variant": ms_once,
           "proofs_per_s": BATCH / (ms * 1e-3),
           "peak_device_bytes": torch.cuda.max_memory_allocated()})
+
+
+def phase_per_proof(device):
+    """make_verifier_fn and make_verifier_fn_phased on the card: the first
+    4 proofs of the fixture, verified one by one under each kernel variant."""
+    proofs, common, vk = load_fixture()
+    n = 4
+    batched = FS.batched_arrays(proofs[:n])
+    fn_batched, to_device = FS.make_verifier_fn_batched(common, vk)
+    pa = to_device(batched)
+    # proof 2 corrupted in all five places, beside the honest proof 3
+    bad = {k: v[2:4] for k, v in corrupt(batched, [2] * 5).items()}
+    pa_bad = to_device(bad)
+    want = fn_batched(pa)
+    check(bool(want.all()), "the batched path rejected an honest proof")
+    seen, seconds = {}, {}
+    for mxu, name in enumerate(pk.KERNELS):
+        lane_counts = []
+
+        def recording(F_, state):
+            lane_counts.append(state.numel() // 12)
+            return pg.permute(F_, state, mxu)
+
+        for maker in (FS.make_verifier_fn, FS.make_verifier_fn_phased):
+            fn, _ = maker(common, vk, permute=recording)  # device="cuda"
+            del lane_counts[:]
+            reset_counts()
+            t0 = time.perf_counter()
+            ok = fn(pa)
+            torch.cuda.synchronize()
+            seconds[f"{maker.__name__}, mxu={mxu}"] = (time.perf_counter() - t0) / n
+            check(ok.dtype == torch.bool and tuple(ok.shape) == (n,)
+                  and torch.equal(ok, want),
+                  f"{maker.__name__}, mxu={mxu}: bits differ from the batched path")
+            check(pk.LAUNCHES[name] == len(lane_counts) > 0
+                  and max(lane_counts) < 128,
+                  f"{maker.__name__}, mxu={mxu}: {pk.LAUNCHES[name]} launches for "
+                  f"{len(lane_counts)} calls, widest {max(lane_counts)} lanes")
+            check(sum(pk.LAUNCHES.values()) == pk.LAUNCHES[name]
+                  and not any(probes.LAUNCHES.values()),
+                  f"{maker.__name__}, mxu={mxu}: another kernel was launched")
+            seen[name] = sorted(set(lane_counts))
+        ok_bad = FS.make_verifier_fn(common, vk, permute=PERMUTES[mxu])[0](pa_bad)
+        check(ok_bad.tolist() == [False, True],
+              f"make_verifier_fn, mxu={mxu}: corrupted proof gave {ok_bad.tolist()}")
+    emit({"phase": "per_proof", "proofs": n, "equal_to_batched": True,
+          "corrupted_rejected": True, "lane_counts_by_kernel": seen,
+          "launches_per_proof": len(lane_counts) // n,
+          "seconds_per_proof": seconds})
 
 
 def main():
@@ -328,12 +570,15 @@ def main():
     device = torch.device("cuda")
     name, smi_line = phase_device()
     phase_build()
-    kernel_row = phase_kernels(device)
-    phase_main_path(device, kernel_row)
+    rows = {}
+    phase_poseidon_kernels(device, rows)
+    phase_probes(device, rows)
+    phase_main_path(device, rows)
+    phase_per_proof(device)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi_line, flush=True)
-    emit({"kernels": [{k: kernel_row[k] for k in keys}]})
+    emit({"kernels": [{k: rows[n][k] for k in keys} for n in KERNEL_FILES]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
 

@@ -1,19 +1,31 @@
-"""What the batched plonky2 verifier shares with any other form of it:
-array accessors, the opening order of the transcript, the vanishing
-polynomial at zeta, and the flattening of a proof into named arrays.
+"""The plonky2 proof verifier on tensors: Fiat-Shamir challenge replay, the
+vanishing-polynomial identity at zeta, and full FRI verification.
 
-Everything plonky2's verifier checks is computed directly on tensors:
-the Fiat-Shamir challenge replay and the FRI checks live in
-core/verifier_batched.py, the vanishing-polynomial identity here. All
-control flow is static in the circuit shape (CommonData).
+`verify(F, common, vk_cap, circuit_digest, pa)` checks one proof: no batch
+axis, query-vector values are [Q], scalars have no dimension, so its Poseidon
+calls have 1, Q and 4 * Q lanes. The same code carries a batch: with
+`batch=(B,)` every array of `pa` has a leading axis B, query vectors are
+[B, Q], scalars [B], and the accept bit becomes bool[B]
+(core/verifier_batched.py is that form's entry). `phase_challenges`,
+`phase_vanishing` and `phase_fri` are `verify` split at the protocol's
+boundaries. All control flow is static in the circuit shape (CommonData).
+
+`permute` overrides the transcript / Merkle / public-input permutation (the
+default follows common.config.hasher and, for the public-input hash, is
+always Goldilocks Poseidon); it exists so that a kernel's path can be held
+against the plain version's on the same device.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..ops import ext2
+from ..ops import poseidon_gl as pg
 from ..ops.hashers import get_permute
+from .challenger import TapeChallenger, resolve_challenges
 from .gates import _se_stack, _se_unstack, selector_filter
+from .merkle import merkle_walk
 from .rings import ExtRing
 from .types import CommonData, Proof
 
@@ -40,21 +52,68 @@ def _scalar_list(F, arr):
     return [arr[..., i] for i in range(arr.shape[-1])]
 
 
+CHALLENGE_FIELDS = ("plonk_betas", "plonk_gammas", "plonk_alphas", "plonk_zeta",
+                    "fri_alpha", "fri_betas", "fri_pow_response",
+                    "fri_query_indices")
+
+
 class ProofChallenges:
-    def __init__(self):
-        self.plonk_betas = None
-        self.plonk_gammas = None
-        self.plonk_alphas = None
-        self.plonk_zeta = None
-        self.fri_alpha = None
-        self.fri_betas = None
-        self.fri_pow_response = None
-        self.fri_query_indices = None
+    def __init__(self, **fields):
+        for f in CHALLENGE_FIELDS:
+            setattr(self, f, fields.get(f))
 
 
 def _perm_for(F, common):
     """Transcript/Merkle permutation for the proof's hash config."""
     return get_permute(getattr(common.config, "hasher", "poseidon"), F)
+
+
+def _digest_rows(F, cap):
+    """cap [..., c, 4] -> list of c digests of 4 elements."""
+    return [[cap[..., r, i] for i in range(4)] for r in range(cap.shape[-2])]
+
+
+def get_challenges(F, common: CommonData, pa: dict, pi_hash, circuit_digest,
+                   permute=None, batch=()):
+    """Replay of plonky2's challenger schedule. The duplex schedule is
+    recorded and then run as a plain loop of permutations of [12, *batch]
+    (see TapeChallenger); the verifying key's digest, which has no batch
+    axis, is broadcast."""
+    ch = ProofChallenges()
+    nc = common.config.num_challenges
+    c = TapeChallenger(F, shape=batch, permute=permute or _perm_for(F, common))
+    for e in _scalar_list(F, circuit_digest):
+        c.observe_element(e.expand(batch))
+    for e in pi_hash:
+        c.observe_element(e)
+    c.observe_cap(_digest_rows(F, pa["wires_cap"]))
+    ch.plonk_betas = c.get_n_challenges(nc)
+    ch.plonk_gammas = c.get_n_challenges(nc)
+    c.observe_cap(_digest_rows(F, pa["zs_pp_cap"]))
+    ch.plonk_alphas = c.get_n_challenges(nc)
+    c.observe_cap(_digest_rows(F, pa["quotient_cap"]))
+    ch.plonk_zeta = c.get_extension_challenge()
+    flat = [
+        x for b in _opening_batches(F, pa) for e in b for x in (e[0], e[1])
+    ]
+    c.observe_elements(flat)
+    ch.fri_alpha = c.get_extension_challenge()
+    ch.fri_betas = []
+    caps = pa["commit_phase_caps"]  # [..., layers, c, 4]
+    for i in range(caps.shape[-3]):
+        c.observe_cap(_digest_rows(F, caps[..., i, :, :]))
+        ch.fri_betas.append(c.get_extension_challenge())
+    c.observe_elements(
+        [x for e in _ext_list(F, pa["final_poly"]) for x in (e[0], e[1])]
+    )
+    c.observe_element(pa["pow_witness"])
+    ch.fri_pow_response = c.get_challenge()
+    ch.fri_query_indices = c.get_n_challenges(
+        common.config.fri_config.num_query_rounds)
+    vals = c.finalize()
+    for f in CHALLENGE_FIELDS:
+        setattr(ch, f, resolve_challenges(getattr(ch, f), vals))
+    return ch
 
 
 def _opening_batches(F, pa):
@@ -189,7 +248,260 @@ def _exp_from_bits_rev(F, base: int, bits):
     return acc
 
 
+def _lift_ext(e):
+    """Lift a per-proof ext element [*batch] to broadcast against [*batch, Q]."""
+    return (e[0][..., None], e[1][..., None])
+
+
+def _all_queries(mask):
+    """Reduce bool [*batch, Q] over the query axis."""
+    return mask.all(dim=-1)
+
+
+def _take_cap(cap, idx):
+    """cap [*batch, c, 4], idx int64 [*batch, Q] -> [*batch, Q, 4]."""
+    return torch.gather(cap, -2, idx[..., None].expand(tuple(idx.shape) + (4,)))
+
+
+def verify_fri(F, common: CommonData, ch, pa, vk_cap, reduced_openings, zeta,
+               zeta_next, ok, permute=None, batch=()):
+    """FRI verification; the query lanes trail the batch axes: [*batch, Q]."""
+    perm = permute or _perm_for(F, common)
+    fp = common.fri_params
+    lde_bits = fp.lde_bits
+    cap_height = fp.config.cap_height
+    pow_bits = fp.config.proof_of_work_bits
+
+    # proof of work: the top `pow_bits` bits of the canonical response are 0
+    pw = ch.fri_pow_response
+    for i in range(64 - pow_bits, 64):
+        ok = ok & (F.bit(pw, i) == 0)
+
+    omega = primitive_root(lde_bits)
+    xi = F.stack(ch.fri_query_indices, axis=-1)  # [*batch, Q]
+    bits = [F.bit(xi, i) for i in range(lde_bits)]
+    cap_index = torch.zeros_like(bits[0])  # int64, as torch.gather wants
+    for k, b in enumerate(bits[lde_bits - cap_height:]):
+        cap_index = cap_index + (b << k)
+
+    # ---- initial tree proofs: leaf-hash each oracle, then ONE merged path
+    # walk over 4*Q lanes (the 4 oracle trees share depth and index bits)
+    depth = lde_bits - cap_height
+    # the verifying key's cap has no batch axis: lift it
+    caps = [vk_cap.expand(tuple(batch) + tuple(vk_cap.shape)),
+            pa["wires_cap"], pa["zs_pp_cap"], pa["quotient_cap"]]
+    evs = [_scalar_list(F, pa[f"init_evals_{o}"]) for o in range(4)]  # [*batch, Q] each
+    states = [
+        pg.hash_or_noop(F, evs[o], shape=tuple(evs[o][0].shape), permute=perm)
+        for o in range(4)
+    ]
+    big_state = [
+        F.concat([states[o][i] for o in range(4)], axis=-1) for i in range(4)
+    ]
+    big_bits = [F.concat([b] * 4, axis=-1) for b in bits[:depth]]
+    big_sibs = [
+        [
+            F.concat(
+                [pa[f"init_sibs_{o}"][..., d, i] for o in range(4)], axis=-1)
+            for i in range(4)
+        ]
+        for d in range(depth)
+    ]
+    big_state = merkle_walk(F, big_state, big_bits, big_sibs, permute=perm)
+    Q = xi.shape[-1]
+    for o in range(4):
+        expected = _take_cap(caps[o], cap_index)  # [*batch, Q, 4]
+        for i in range(4):
+            lane = big_state[i][..., o * Q : (o + 1) * Q]
+            ok = ok & _all_queries(F.equal(expected[..., i], lane))
+
+    # ---- x = g * omega^rev(index), then the DEEP batching of the initial
+    # polynomials (salt columns of a blinded oracle are not opened)
+    x = F.mul(F.const(GENERATOR), _exp_from_bits_rev(F, omega, bits))
+    x_ext = (x, F.zeros(x.shape))
+    alpha_b = _lift_ext(ch.fri_alpha)
+    oracles = common.fri_oracles()
+    salts = [common.salt_size(oracles[o][1]) for o in range(4)]
+    zeta_vals = sum(
+        (evs[o][: len(evs[o]) - salts[o]] for o in range(4)), [])
+    zs_vals = evs[2][: common.config.num_challenges]
+    summ = ext2.zero(F, x.shape)
+    for point, vals, ro in (
+        (zeta, zeta_vals, reduced_openings[0]),
+        (zeta_next, zs_vals, reduced_openings[1]),
+    ):
+        reduced_evals = ext2.reduce_base_terms(F, alpha_b, vals)
+        numerator = ext2.sub(F, reduced_evals, _lift_ext(ro))
+        denominator = ext2.sub(F, x_ext, _lift_ext(point))
+        summ = ext2.mul(F, ext2.pow_const(F, alpha_b, len(vals), x.shape), summ)
+        summ = ext2.add(F, ext2.div(F, numerator, denominator), summ)
+    prev_eval = summ
+
+    # ---- fold phase, any constant arity: select-tree consistency check,
+    # then barycentric interpolation at beta on the multiplicative coset
+    cur_bits = bits
+    for li, arity_bits in enumerate(fp.reduction_arity_bits):
+        arity = 1 << arity_bits
+        evals = pa[f"step_evals_{li}"]  # [*batch, Q, arity, 2]
+        e = [(evals[..., j, 0], evals[..., j, 1]) for j in range(arity)]
+        idx_bits = cur_bits[:arity_bits]  # LE: x_index_within_coset
+        masks = [b != 0 for b in idx_bits]
+        sel = e
+        for m in masks:
+            sel = [ext2.select(F, m, sel[2 * k + 1], sel[2 * k])
+                   for k in range(len(sel) // 2)]
+        ok = ok & _all_queries(ext2.equal(F, prev_eval, sel[0]))
+
+        beta = _lift_ext(ch.fri_betas[li])
+        if arity_bits == 1:
+            # 2-point interpolation at beta; g = -1
+            e_0, e_1 = e
+            coset_start = F.select(masks[0], F.neg(x), x)  # x * (-1)^b0
+            a0 = (coset_start, F.zeros(x.shape))
+            b0p = (F.neg(coset_start), F.zeros(x.shape))
+            num = ext2.mul(F, ext2.sub(F, beta, a0), ext2.sub(F, e_1, e_0))
+            den = ext2.sub(F, b0p, a0)
+            prev_eval = ext2.add(F, ext2.div(F, num, den), e_0)
+        else:
+            # interpolate {(coset_start * g^i, eval_rev[i])} at beta, plonky2
+            # compute_evaluation semantics. coset_start = x * g^{-rev(idx)};
+            # evals reordered by in-coset bit reversal. Closed form:
+            #   prod_j (beta - cs*g^j)        = beta^arity - cs^arity
+            #   prod_{j!=i} (cs*g^i - cs*g^j) = arity * cs^(arity-1) * g^{-i}
+            # => I(beta) = (beta^arity - cs^arity) / (arity * cs^(arity-1))
+            #              * sum_i ev[i] * g^i / (beta - cs*g^i)
+            g = primitive_root(arity_bits)
+            g_inv = pow(g, P - 2, P)
+            coset_start = x
+            for j in range(arity_bits):
+                # rev(idx) bit j is idx_bits[arity_bits - 1 - j]
+                c = F.const(pow(g_inv, 1 << j, P), x.shape)
+                coset_start = F.select(masks[arity_bits - 1 - j],
+                                       F.mul(coset_start, c), coset_start)
+            ev = [e[int(f"{i:0{arity_bits}b}"[::-1], 2)] for i in range(arity)]
+            cs_ext = (coset_start, F.zeros(x.shape))
+            cs_pow = ext2.pow_const(F, cs_ext, arity, x.shape)
+            beta_pow = ext2.pow_const(F, beta, arity, x.shape)
+            front = ext2.div(
+                F,
+                ext2.sub(F, beta_pow, cs_pow),
+                ext2.mul(
+                    F,
+                    (F.const(arity, x.shape), F.zeros(x.shape)),
+                    ext2.pow_const(F, cs_ext, arity - 1, x.shape),
+                ),
+            )
+            total = ext2.zero(F, x.shape)
+            for i in range(arity):
+                gi = F.const(pow(g, i, P), x.shape)
+                x_i = (F.mul(coset_start, gi), F.zeros(x.shape))
+                term = ext2.div(
+                    F,
+                    ext2.mul(F, ev[i], (gi, F.zeros(x.shape))),
+                    ext2.sub(F, beta, x_i),
+                )
+                total = ext2.add(F, total, term)
+            prev_eval = ext2.mul(F, front, total)
+
+        # merkle proof of the coset leaf against commit-phase cap li
+        coset_bits = cur_bits[arity_bits:]
+        d_i = len(coset_bits) - cap_height
+        sibs = pa[f"step_sibs_{li}"]  # [*batch, Q, d_i, 4]
+        leaf = [c for ej in e for c in ej]  # flattened stored order
+        siblings = [[sibs[..., d, i] for i in range(4)] for d in range(d_i)]
+        cap_li = pa["commit_phase_caps"][..., li, :, :]
+        state = pg.hash_or_noop(F, leaf, shape=tuple(leaf[0].shape), permute=perm)
+        state = merkle_walk(F, state, coset_bits[:d_i], siblings, permute=perm)
+        expected = _take_cap(cap_li, cap_index)
+        for i in range(4):
+            ok = ok & _all_queries(F.equal(expected[..., i], state[i]))
+
+        for _ in range(arity_bits):
+            x = F.mul(x, x)
+        x_ext = (x, F.zeros(x.shape))
+        cur_bits = coset_bits
+
+    final_coeffs = [
+        _lift_ext(e) for e in _ext_list(F, pa["final_poly"])
+    ]
+    final_eval = ext2.reduce_with_powers(F, x_ext, final_coeffs)
+    ok = ok & _all_queries(ext2.equal(F, prev_eval, final_eval))
+    return ok
+
+
 # ---------------------------------------------------------------- top level
+def _quotient_check(F, common, pa, vanishing, zeta_pow_deg):
+    """vanishing(zeta) == Z_H(zeta) * quotient(zeta), per challenge round."""
+    R = ExtRing(F)
+    ok = None
+    z_h_zeta = R.sub(zeta_pow_deg, R.one())
+    quotient_list = _ext_list(F, pa["open_quotient_polys"])
+    qdf = common.quotient_degree_factor
+    for i in range(common.config.num_challenges):
+        chunk = quotient_list[i * qdf : (i + 1) * qdf]
+        recombined = R.reduce_with_powers(zeta_pow_deg, chunk)
+        eq = ext2.equal(F, vanishing[i], R.mul(z_h_zeta, recombined))
+        ok = eq if ok is None else (ok & eq)
+    return ok
+
+
+def phase_challenges(F, common: CommonData, circuit_digest, pa: dict,
+                     permute=None, batch=()):
+    """Phase 1: public-input hash + Fiat-Shamir replay. Returns (pi_hash,
+    the challenges as a dict of lists and tuples of tensors)."""
+    # the public-input hash is plonky2's InnerHasher: Goldilocks Poseidon
+    # under every config
+    pi_hash = pg.hash_no_pad(F, _scalar_list(F, pa["public_inputs"]),
+                             shape=tuple(batch), permute=permute or pg.permute)
+    ch = get_challenges(F, common, pa, pi_hash, circuit_digest,
+                        permute=permute, batch=batch)
+    return pi_hash, {f: getattr(ch, f) for f in CHALLENGE_FIELDS}
+
+
+def phase_vanishing(F, common: CommonData, pa: dict, pi_hash, ch_tree):
+    """Phase 2: vanishing polynomial at zeta + quotient recombination."""
+    vanishing, zeta_pow_deg = eval_vanishing_poly(
+        F, common, ProofChallenges(**ch_tree), pa, pi_hash)
+    return _quotient_check(F, common, pa, vanishing, zeta_pow_deg)
+
+
+def phase_fri(F, common: CommonData, vk_cap, pa: dict, ch_tree, ok,
+              permute=None, batch=()):
+    """Phase 3: DEEP reduced openings + full FRI verification."""
+    ch = ProofChallenges(**ch_tree)
+    reduced_openings = [ext2.reduce_with_powers(F, ch.fri_alpha, b)
+                        for b in _opening_batches(F, pa)]
+    g_zeta = F.const(_g_pow(ORDER >> common.degree_bits))
+    zeta_next = ext2.scalar_mul(F, ch.plonk_zeta, g_zeta)
+    return verify_fri(F, common, ch, pa, vk_cap, reduced_openings,
+                      ch.plonk_zeta, zeta_next, ok, permute=permute, batch=batch)
+
+
+def verify(F, common: CommonData, vk_cap, circuit_digest, pa: dict,
+           permute=None, batch=()):
+    """Verify one proof (or, with `batch=(B,)`, B proofs stacked along a
+    leading axis); returns the accept bit as a bool tensor of shape `batch`.
+
+    `pa` values are int64 tensors (see arrays_to_backend); `vk_cap` is a
+    [cap, 4] tensor, `circuit_digest` a [4] tensor."""
+    pi_hash, ch_tree = phase_challenges(F, common, circuit_digest, pa,
+                                        permute=permute, batch=batch)
+    ok = phase_vanishing(F, common, pa, pi_hash, ch_tree)
+    return phase_fri(F, common, vk_cap, pa, ch_tree, ok,
+                     permute=permute, batch=batch)
+
+
+def arrays_to_backend(F, pa: dict) -> dict:
+    return {k: F.from_u64(v) for k, v in pa.items()}
+
+
+def verify_proof(F, common: CommonData, vk, proof: Proof, permute=None):
+    """Convenience single-proof entry on F's device."""
+    pa = arrays_to_backend(F, proof_to_arrays(proof))
+    return verify(F, common, F.from_u64(vk.constants_sigmas_cap),
+                  F.from_u64(vk.circuit_digest), pa, permute=permute)
+
+
 def proof_to_arrays(proof: Proof) -> dict:
     """Flatten a Proof into the named-array dict the verifier consumes."""
     pa = {

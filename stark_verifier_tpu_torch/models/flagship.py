@@ -1,8 +1,12 @@
 """The flagship pipeline: batched Semaphore-proof verification on the GPU.
 
 Loads a batch of Semaphore proofs from a fixture (core/types.load_proofs),
-stacks them along a leading batch axis, and exposes the batched verifier
-over int64 tensors on a device: the unit that chip_smoke.py drives.
+stacks them along a leading batch axis, and exposes the verifier over int64
+tensors on a device: batch-in-lanes (`make_verifier_fn_batched`, the unit
+of throughput) or proof by proof (`make_verifier_fn`, and
+`make_verifier_fn_phased`, which runs the three protocol phases apart).
+All three take the same batched dict and return the accept bits bool[B];
+chip_smoke.py drives them.
 """
 from __future__ import annotations
 
@@ -47,23 +51,68 @@ def _require_device(device) -> torch.device:
     return device
 
 
+def _bind(common, vk, device):
+    """(F, vk_cap, digest, to_device) on `device`: what every entry point
+    below closes over."""
+    F = gl64.Field(_require_device(device))
+    vk_cap = F.from_u64(vk.constants_sigmas_cap)
+    digest = F.from_u64(vk.circuit_digest)
+
+    def to_device(batched):
+        return {k: F.from_u64(v) for k, v in batched.items()}
+
+    return F, vk_cap, digest, to_device
+
+
+def _one_by_one(verify_one):
+    """Lift a per-proof verifier to the batched dict: proof b is the b-th
+    slice of every array; the accept bits are stacked to bool[B]."""
+    def fn(pa):
+        n = pa["public_inputs"].shape[0]
+        return torch.stack(
+            [verify_one({k: v[b] for k, v in pa.items()}) for b in range(n)])
+
+    return fn
+
+
+def make_verifier_fn(common, vk, device="cuda", permute=None):
+    """Per-proof verifier (core/verifier.verify) on `device`, proofs verified
+    one by one: where the JAX package maps its single-proof verifier over
+    the batch, this loops. Returns (fn, to_device) as
+    make_verifier_fn_batched does. A proof's Poseidon calls have 1, Q and
+    4 * Q lanes (Q = number of FRI queries)."""
+    F, vk_cap, digest, to_device = _bind(common, vk, device)
+    return _one_by_one(
+        lambda pa: V.verify(F, common, vk_cap, digest, pa, permute=permute)
+    ), to_device
+
+
+def make_verifier_fn_phased(common, vk, device="cuda", permute=None):
+    """The per-proof verifier as its three phases (challenges, vanishing
+    polynomial, FRI) run in sequence; the challenges cross the phase
+    boundaries as a plain dict. Same result as make_verifier_fn."""
+    F, vk_cap, digest, to_device = _bind(common, vk, device)
+
+    def verify_one(pa):
+        pi_hash, ch = V.phase_challenges(F, common, digest, pa, permute=permute)
+        ok = V.phase_vanishing(F, common, pa, pi_hash, ch)
+        return V.phase_fri(F, common, vk_cap, pa, ch, ok, permute=permute)
+
+    return _one_by_one(verify_one), to_device
+
+
 def make_verifier_fn_batched(common, vk, device="cuda", permute=None):
     """Batch-in-lanes verifier (core/verifier_batched.py) on `device`.
 
     Returns (fn, to_device): `to_device` maps the u64 numpy dict of
     `batched_arrays` to int64 tensors on the device, `fn` maps those to the
     accept bits bool[B]. `permute` overrides the Poseidon permutation (see
-    verify_batched); the default launches the Hopper kernel on a CUDA
-    device."""
-    device = _require_device(device)
-    F = gl64.Field(device)
-    vk_cap = F.from_u64(vk.constants_sigmas_cap)
-    digest = F.from_u64(vk.circuit_digest)
+    core/verifier.py), e.g. `functools.partial(poseidon_gl.permute, mxu=1)`
+    for a kernel variant; the default launches the Hopper kernel that
+    SVT_POSEIDON_MXU names on a CUDA device."""
+    F, vk_cap, digest, to_device = _bind(common, vk, device)
 
     def fn(pa):
         return VB.verify_batched(F, common, vk_cap, digest, pa, permute=permute)
-
-    def to_device(batched):
-        return {k: F.from_u64(v) for k, v in batched.items()}
 
     return fn, to_device

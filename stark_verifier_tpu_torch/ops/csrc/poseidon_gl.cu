@@ -28,57 +28,7 @@
 //
 // Plain C interface (loaded with ctypes): no PyTorch headers, launches on
 // the stream it is given, allocates nothing, returns cudaGetLastError().
-#include <cstdint>
-#include <cuda_runtime.h>
-
-typedef unsigned long long u64;
-typedef unsigned int u32;
-
-#define WIDTH 12
-#define N_ROUNDS 30
-#define HALF_FULL 4
-#define N_PARTIAL 22
-#define EPS 0xFFFFFFFFull                // 2^64 mod p
-#define GL_P 0xFFFFFFFF00000001ull
-
-__constant__ u64 ROUND_CONSTANTS[N_ROUNDS * WIDTH];
-
-// (hi * 2^64 + lo) mod p as a representative in [0, 2^64), not canonical.
-// 2^64 = EPS and 2^96 = -1 (mod p), so the value is lo - hi_hi + hi_lo * EPS.
-__device__ __forceinline__ u64 reduce128(u64 hi, u64 lo) {
-    u64 hi_hi = hi >> 32;
-    u64 hi_lo = hi & EPS;
-    u64 t0 = lo - hi_hi;
-    // A borrow subtracted 2^64 too little: take EPS off. t0 is then at least
-    // 2^64 - 2^32 + 1 > EPS, so this cannot borrow again.
-    if (lo < hi_hi) t0 -= EPS;
-    u64 t1 = hi_lo * EPS;                // <= (2^32 - 1)^2, no wrap
-    u64 r = t0 + t1;
-    // A carry dropped 2^64: add EPS. r is then at most 2^64 - 2^33, so this
-    // cannot carry again.
-    if (r < t1) r += EPS;
-    return r;
-}
-
-__device__ __forceinline__ u64 mul_gl(u64 a, u64 b) {
-    return reduce128(__umul64hi(a, b), a * b);
-}
-
-// a + b mod p on any representatives. The wrap past 2^64 folds as +EPS; with
-// representatives up to 2^64 - 1 that fold can wrap once more (after which
-// the value is below EPS, so a third wrap is impossible).
-__device__ __forceinline__ u64 add_gl(u64 a, u64 b) {
-    u64 s = a + b;
-    u64 s2 = s + ((s < a) ? EPS : 0ull);
-    return s2 + ((s2 < s) ? EPS : 0ull);
-}
-
-__device__ __forceinline__ u64 sbox7(u64 x) {
-    u64 x2 = mul_gl(x, x);
-    u64 x3 = mul_gl(x2, x);
-    u64 x4 = mul_gl(x2, x2);
-    return mul_gl(x3, x4);
-}
+#include "goldilocks.cuh"
 
 // out[r] = sum_t CIRC[t] * s[(r + t) % 12] + DIAG[r] * s[r], DIAG = (8, 0...).
 //
@@ -86,7 +36,7 @@ __device__ __forceinline__ u64 sbox7(u64 x) {
 // most. Each half of a state word is below 2^32, so each of the two sums is
 // below 264 * 2^32 < 2^41 and exact in a u64. The row's value
 // sum_lo + sum_hi * 2^32 is below 2^73 + 2^41 < 2^74: a 128-bit value whose
-// high word is below 2^10, which reduce128 folds in one step.
+// high word is below 2^10, which fold_halves reduces in one step.
 __device__ __forceinline__ void mds_layer(u64 (&s)[WIDTH]) {
     constexpr u32 CIRC[WIDTH] = {17, 15, 41, 16, 2, 28, 13, 13, 39, 18, 34, 20};
     constexpr u32 DIAG0 = 8;
@@ -108,16 +58,8 @@ __device__ __forceinline__ void mds_layer(u64 (&s)[WIDTH]) {
             sum_lo += (u64)lo[0] * DIAG0;
             sum_hi += (u64)hi[0] * DIAG0;
         }
-        u64 lo128 = sum_lo + (sum_hi << 32);
-        u64 hi128 = (sum_hi >> 32) + ((lo128 < sum_lo) ? 1ull : 0ull);
-        s[r] = reduce128(hi128, lo128);
+        s[r] = fold_halves(sum_lo, sum_hi);
     }
-}
-
-__device__ __forceinline__ void add_round_constants(u64 (&s)[WIDTH], int round) {
-#pragma unroll
-    for (int j = 0; j < WIDTH; ++j)
-        s[j] = add_gl(s[j], ROUND_CONSTANTS[round * WIDTH + j]);
 }
 
 __device__ __forceinline__ void full_round(u64 (&s)[WIDTH], int round) {
@@ -152,8 +94,7 @@ poseidon_permute_kernel(const u64* __restrict__ in, u64* __restrict__ out,
 
 #pragma unroll
     for (int j = 0; j < WIDTH; ++j) {
-        u64 v = s[j];
-        out[j * L + i] = (v >= GL_P) ? v - GL_P : v;   // canonical
+        out[j * L + i] = canonical(s[j]);
     }
 }
 
@@ -161,8 +102,7 @@ extern "C" {
 
 // Copies the 30 x 12 round constants (host memory) into __constant__ memory.
 int poseidon_set_round_constants(const void* host_u64) {
-    return (int)cudaMemcpyToSymbol(ROUND_CONSTANTS, host_u64,
-                                   sizeof(u64) * N_ROUNDS * WIDTH);
+    return set_round_constants(host_u64);
 }
 
 // in, out: device pointers to two distinct contiguous u64[12, L] buffers.

@@ -1,0 +1,337 @@
+// Rate probes for NVIDIA Hopper (sm_90a): what the card's integer and float
+// pipes and its tensor cores sustain on the instructions the Poseidon kernels
+// are made of.
+//
+// Replaces the two TPU kernels of tools/vpu_microbench.py: `_mk(...).run`
+// (body `kernel`: chains of 512 dependent u32 / f32 ops on an [8, 512] tile,
+// grid 64, an ALU-rate probe of the vector unit) -> alu_probe, and `run_mxu`
+// (body `mxu_kernel`: an f32 [12, 12] @ [12, 8192] product chained 30 times,
+// one per Poseidon round, a matrix-unit probe) -> mma_probe.
+//
+// What bounds them: operations, by design. alu_probe reads and writes one
+// word an element and does `chain` (x `ilp`) steps on it in registers;
+// mma_probe keeps its tile in shared memory for all 30 products. The TPU
+// shapes would fill 4 of this card's 132 SMs, so the caller sizes the input
+// to fill the card instead (at least 132 x 2048 threads).
+//
+// alu_probe. A compiler folds `y += x` 512 times into y + 512 * x and
+// strength-reduces the rest, so every step is one `asm volatile` of the
+// intended PTX instruction (tools/torch_vpu_microbench.py counts the machine
+// instructions in the built library where cuobjdump is there: the assembler
+// still picks the machine code, and merges two add.u32 steps into one
+// three-input add, so OP_ADD_U32 times the step and not one add). With ilp = 1
+// a thread runs one dependent chain (latency shows); with ilp = 4 it runs
+// four independent ones (throughput shows).
+//
+// mma_probe. y <- (M @ y) mod 256, 30 times, on bytes. The TPU's probe used
+// random floats; this one is integer-valued because it times the product the
+// Poseidon kernel runs, whose operands are 8-bit limbs: kind 0 through
+// mma.sync m16n8k16 s32.u8.u8.s32 (the shape poseidon_gl_mma.cu uses), kind 1
+// through the TF32 mma m16n8k8 (two of them cover the 12 rows of y, padded to
+// 16). The mod 256 keeps both exact: values < 256 fit TF32's 11-bit
+// significand, entries of M are < 64, so sums are < 12 * 63 * 255 < 2^18.
+// Between two products D's fragment layout (rows t/4, t/4 + 8; columns
+// 2(t%4), +1) has to become B's (rows 4(t%4).. + 3; column t/4): through the
+// warp's shared memory, as in the Poseidon kernel.
+//
+// Plain C interface (loaded with ctypes): no PyTorch headers, launches on
+// the stream it is given, allocates nothing, returns cudaGetLastError().
+#include <cstdint>
+#include <cuda_runtime.h>
+
+typedef unsigned long long u64;
+typedef unsigned int u32;
+typedef unsigned char u8;
+
+// ------------------------------------------------------------- alu_probe
+enum {
+    OP_MUL_U32 = 0,       // y <- y * x                     mul.lo.u32
+    OP_ADD_U32 = 1,       // y <- y + x                     add.u32
+    OP_SHIFT_ADD_U32 = 2, // y <- (y >> 1) + x              shr.u32, add.u32
+    OP_CMP_ADD_U32 = 3,   // y <- y + (y < x)               setp, selp, add
+    OP_FMA_F32 = 4,       // y <- y * x + x                 fma.rn.f32
+    OP_CVT_U32_F32 = 5,   // y <- u32(f32(y)) + x           cvt, cvt, add
+    OP_MUL_LO_U64 = 6,    // y <- y * x (low 64 bits)       mul.lo.u64
+    OP_MUL_HI_U64 = 7,    // y <- (y * x) >> 64             mul.hi.u64
+    OP_MAD_WIDE_U32 = 8,  // y <- u32(y) * x + y (64-bit)   mad.wide.u32
+};
+
+template <int OP> struct Step;
+
+template <> struct Step<OP_MUL_U32> {
+    typedef u32 X; typedef u32 Y;
+    static __device__ __forceinline__ Y init(X x, int k) { return x + k; }
+    static __device__ __forceinline__ void run(Y& y, X x) {
+        asm volatile("mul.lo.u32 %0, %0, %1;" : "+r"(y) : "r"(x));
+    }
+};
+template <> struct Step<OP_ADD_U32> {
+    typedef u32 X; typedef u32 Y;
+    static __device__ __forceinline__ Y init(X x, int k) { return x + k; }
+    static __device__ __forceinline__ void run(Y& y, X x) {
+        asm volatile("add.u32 %0, %0, %1;" : "+r"(y) : "r"(x));
+    }
+};
+template <> struct Step<OP_SHIFT_ADD_U32> {
+    typedef u32 X; typedef u32 Y;
+    static __device__ __forceinline__ Y init(X x, int k) { return x + k; }
+    static __device__ __forceinline__ void run(Y& y, X x) {
+        asm volatile("{ .reg .u32 t; shr.u32 t, %0, 1; add.u32 %0, t, %1; }"
+                     : "+r"(y) : "r"(x));
+    }
+};
+template <> struct Step<OP_CMP_ADD_U32> {
+    typedef u32 X; typedef u32 Y;
+    static __device__ __forceinline__ Y init(X x, int k) { return x + k; }
+    static __device__ __forceinline__ void run(Y& y, X x) {
+        asm volatile("{ .reg .pred p; .reg .u32 t; setp.lt.u32 p, %0, %1; "
+                     "selp.u32 t, 1, 0, p; add.u32 %0, %0, t; }"
+                     : "+r"(y) : "r"(x));
+    }
+};
+template <> struct Step<OP_FMA_F32> {
+    typedef float X; typedef float Y;
+    static __device__ __forceinline__ Y init(X x, int k) { return x + 0.125f * k; }
+    static __device__ __forceinline__ void run(Y& y, X x) {
+        asm volatile("fma.rn.f32 %0, %0, %1, %1;" : "+f"(y) : "f"(x));
+    }
+};
+template <> struct Step<OP_CVT_U32_F32> {
+    typedef u32 X; typedef u32 Y;
+    static __device__ __forceinline__ Y init(X x, int k) { return x + k; }
+    // u32 -> f32 rounds to nearest even; f32 -> u32 truncates and saturates
+    static __device__ __forceinline__ void run(Y& y, X x) {
+        asm volatile("{ .reg .f32 f; .reg .u32 t; cvt.rn.f32.u32 f, %0; "
+                     "cvt.rzi.u32.f32 t, f; add.u32 %0, t, %1; }"
+                     : "+r"(y) : "r"(x));
+    }
+};
+template <> struct Step<OP_MUL_LO_U64> {
+    typedef u64 X; typedef u64 Y;
+    static __device__ __forceinline__ Y init(X x, int k) { return x + k; }
+    static __device__ __forceinline__ void run(Y& y, X x) {
+        asm volatile("mul.lo.u64 %0, %0, %1;" : "+l"(y) : "l"(x));
+    }
+};
+template <> struct Step<OP_MUL_HI_U64> {
+    typedef u64 X; typedef u64 Y;
+    static __device__ __forceinline__ Y init(X x, int k) { return x + k; }
+    static __device__ __forceinline__ void run(Y& y, X x) {
+        asm volatile("mul.hi.u64 %0, %0, %1;" : "+l"(y) : "l"(x));
+    }
+};
+template <> struct Step<OP_MAD_WIDE_U32> {
+    typedef u32 X; typedef u64 Y;
+    static __device__ __forceinline__ Y init(X x, int k) { return (u64)x + k; }
+    static __device__ __forceinline__ void run(Y& y, X x) {
+        u32 y_lo = (u32)y;
+        asm volatile("mad.wide.u32 %0, %1, %2, %0;" : "+l"(y) : "r"(y_lo), "r"(x));
+    }
+};
+
+#define ALU_THREADS 256
+
+template <int OP, int ILP>
+__global__ void __launch_bounds__(ALU_THREADS)
+alu_probe_kernel(const typename Step<OP>::X* __restrict__ x,
+                 typename Step<OP>::Y* __restrict__ out, long long n, int chain) {
+    typedef Step<OP> S;
+    long long i = (long long)blockIdx.x * ALU_THREADS + threadIdx.x;
+    if (i >= n) return;
+    const typename S::X xv = x[i];
+    typename S::Y y[ILP];
+#pragma unroll
+    for (int k = 0; k < ILP; ++k) y[k] = S::init(xv, k);
+#pragma unroll 8
+    for (int s = 0; s < chain; ++s) {
+#pragma unroll
+        for (int k = 0; k < ILP; ++k) S::run(y[k], xv);
+    }
+    typename S::Y r = y[0];
+#pragma unroll
+    for (int k = 1; k < ILP; ++k) r += y[k];   // wraps for the integer types
+    out[i] = r;
+}
+
+template <int OP>
+static int launch_alu(int ilp, const void* x, void* out, long long n, int chain,
+                      cudaStream_t stream) {
+    typedef Step<OP> S;
+    unsigned blocks = (unsigned)((n + ALU_THREADS - 1) / ALU_THREADS);
+    const typename S::X* xp = (const typename S::X*)x;
+    typename S::Y* op = (typename S::Y*)out;
+    if (ilp == 1)
+        alu_probe_kernel<OP, 1><<<blocks, ALU_THREADS, 0, stream>>>(xp, op, n, chain);
+    else if (ilp == 4)
+        alu_probe_kernel<OP, 4><<<blocks, ALU_THREADS, 0, stream>>>(xp, op, n, chain);
+    else
+        return (int)cudaErrorInvalidValue;
+    return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------- mma_probe
+#define MMA_BLOCK_COLS 8192
+#define MMA_THREADS 256                       // 8 warps, 1024 columns each
+#define MMA_WARP_COLS (MMA_BLOCK_COLS / (MMA_THREADS / 32))
+#define GROUP_TILES 8                         // 8 tiles of 8 columns in flight a warp
+#define GROUP_COLS (8 * GROUP_TILES)
+#define TILE_BYTES 128                        // [column 0..7][row 0..15]
+
+__device__ __forceinline__ void mma_u8(int (&d)[4], u32 a0, u32 a1, u32 b) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.s32.u8.u8.s32 "
+        "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%7, %7, %7, %7};"
+        : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+        : "r"(a0), "r"(a1), "r"(b), "r"(0));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const u32 (&a)[4],
+                                         u32 b0, u32 b1, const float (&c)[4]) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+          "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
+}
+
+__device__ __forceinline__ u32 m_entry(const u8* M, int row, int col) {
+    return (row < 12 && col < 12) ? (u32)M[row * 12 + col] : 0u;
+}
+
+// KIND 0: u8 mma; KIND 1: tf32 mma. y, out: u8[12, N], N % 8192 == 0; M: u8[12, 12].
+template <int KIND>
+__global__ void __launch_bounds__(MMA_THREADS)
+mma_probe_kernel(const u8* __restrict__ y, const u8* __restrict__ M,
+                 u8* __restrict__ out, long long N, int steps) {
+    __shared__ __align__(16) u8 smem[(MMA_THREADS / 32) * GROUP_TILES * TILE_BYTES];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int grp = lane >> 2, q = lane & 3;
+    u8* tiles = smem + warp * GROUP_TILES * TILE_BYTES;
+
+    // the matrix as this thread's A fragments; rows and columns 12..15 are zero
+    u32 a_u8[2] = {0u, 0u};
+    u32 a_tf[2][4];
+    if (KIND == 0) {
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+            a_u8[0] |= m_entry(M, grp, 4 * q + b) << (8 * b);
+            a_u8[1] |= m_entry(M, grp + 8, 4 * q + b) << (8 * b);
+        }
+    } else {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            a_tf[h][0] = __float_as_uint((float)m_entry(M, grp, 8 * h + q));
+            a_tf[h][1] = __float_as_uint((float)m_entry(M, grp + 8, 8 * h + q));
+            a_tf[h][2] = __float_as_uint((float)m_entry(M, grp, 8 * h + q + 4));
+            a_tf[h][3] = __float_as_uint((float)m_entry(M, grp + 8, 8 * h + q + 4));
+        }
+    }
+
+    // rows 12..15 of every tile stay zero for the whole kernel
+    for (int i = lane; i < GROUP_TILES * TILE_BYTES / 4; i += 32)
+        reinterpret_cast<u32*>(tiles)[i] = 0u;
+    __syncwarp();
+
+    const long long warp_base =
+        (long long)blockIdx.x * MMA_BLOCK_COLS + (long long)warp * MMA_WARP_COLS;
+    for (int group = 0; group < MMA_WARP_COLS / GROUP_COLS; ++group) {
+        const long long base = warp_base + (long long)group * GROUP_COLS;
+        // load 12 rows of 64 columns, two columns a thread, coalesced over the warp
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+            int c = lane + 32 * half;
+#pragma unroll
+            for (int r = 0; r < 12; ++r)
+                tiles[(c >> 3) * TILE_BYTES + (c & 7) * 16 + r] = y[r * N + base + c];
+        }
+        __syncwarp();
+#pragma unroll 1
+        for (int s = 0; s < steps; ++s) {
+            int d[GROUP_TILES][4];
+#pragma unroll
+            for (int t = 0; t < GROUP_TILES; ++t) {
+                const u8* col = tiles + t * TILE_BYTES + grp * 16;
+                if (KIND == 0) {
+                    mma_u8(d[t], a_u8[0], a_u8[1],
+                           *reinterpret_cast<const u32*>(col + 4 * q));
+                } else {
+                    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+                    for (int h = 0; h < 2; ++h) {
+                        u32 b0 = __float_as_uint((float)col[8 * h + q]);
+                        u32 b1 = __float_as_uint((float)col[8 * h + q + 4]);
+                        float next[4];
+                        mma_tf32(next, a_tf[h], b0, b1, acc);
+#pragma unroll
+                        for (int e = 0; e < 4; ++e) acc[e] = next[e];
+                    }
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) d[t][e] = (int)acc[e];
+                }
+            }
+            __syncwarp();   // every fragment is loaded before a tile is overwritten
+#pragma unroll
+            for (int t = 0; t < GROUP_TILES; ++t) {
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    int row = grp + 8 * (e >> 1);
+                    if (row < 12)
+                        tiles[t * TILE_BYTES + (2 * q + (e & 1)) * 16 + row] =
+                            (u8)(d[t][e] & 0xFF);
+                }
+            }
+            __syncwarp();
+        }
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+            int c = lane + 32 * half;
+#pragma unroll
+            for (int r = 0; r < 12; ++r)
+                out[r * N + base + c] = tiles[(c >> 3) * TILE_BYTES + (c & 7) * 16 + r];
+        }
+        __syncwarp();
+    }
+}
+
+extern "C" {
+
+// x, out: device pointers to n contiguous elements (u32 or f32 in and out;
+// u64 in and out for ops 6 and 7; u32 in and u64 out for op 8).
+int alu_probe(int op, int ilp, const void* x, void* out, long long n, int chain,
+              void* stream) {
+    if (n <= 0) return 0;
+    cudaStream_t s = (cudaStream_t)stream;
+    switch (op) {
+        case OP_MUL_U32: return launch_alu<OP_MUL_U32>(ilp, x, out, n, chain, s);
+        case OP_ADD_U32: return launch_alu<OP_ADD_U32>(ilp, x, out, n, chain, s);
+        case OP_SHIFT_ADD_U32: return launch_alu<OP_SHIFT_ADD_U32>(ilp, x, out, n, chain, s);
+        case OP_CMP_ADD_U32: return launch_alu<OP_CMP_ADD_U32>(ilp, x, out, n, chain, s);
+        case OP_FMA_F32: return launch_alu<OP_FMA_F32>(ilp, x, out, n, chain, s);
+        case OP_CVT_U32_F32: return launch_alu<OP_CVT_U32_F32>(ilp, x, out, n, chain, s);
+        case OP_MUL_LO_U64: return launch_alu<OP_MUL_LO_U64>(ilp, x, out, n, chain, s);
+        case OP_MUL_HI_U64: return launch_alu<OP_MUL_HI_U64>(ilp, x, out, n, chain, s);
+        case OP_MAD_WIDE_U32: return launch_alu<OP_MAD_WIDE_U32>(ilp, x, out, n, chain, s);
+    }
+    return (int)cudaErrorInvalidValue;
+}
+
+// y, out: device pointers to u8[12, N], N a positive multiple of 8192;
+// M: device pointer to u8[12, 12]; kind 0 = u8 mma, 1 = tf32 mma.
+int mma_probe(int kind, const void* y, const void* M, void* out, long long N,
+              int steps, void* stream) {
+    if (N <= 0 || N % MMA_BLOCK_COLS != 0) return (int)cudaErrorInvalidValue;
+    unsigned blocks = (unsigned)(N / MMA_BLOCK_COLS);
+    cudaStream_t s = (cudaStream_t)stream;
+    if (kind == 0)
+        mma_probe_kernel<0><<<blocks, MMA_THREADS, 0, s>>>(
+            (const u8*)y, (const u8*)M, (u8*)out, N, steps);
+    else if (kind == 1)
+        mma_probe_kernel<1><<<blocks, MMA_THREADS, 0, s>>>(
+            (const u8*)y, (const u8*)M, (u8*)out, N, steps);
+    else
+        return (int)cudaErrorInvalidValue;
+    return (int)cudaGetLastError();
+}
+
+}  // extern "C"

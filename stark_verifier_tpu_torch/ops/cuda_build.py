@@ -3,7 +3,8 @@
 Each source under `ops/csrc/` has a plain C interface and includes no
 PyTorch header, so a build takes seconds. The shared libraries go into
 `build/` at the repository root (git-ignored), named after a hash of the
-source so an edited source is never served by a stale library. Everything
+source and of the headers it includes from `csrc/`, so an edited source or
+header is never served by a stale library. Everything
 happens at first use, never at import: a machine without `nvcc` can import
 the package and run it on CPU tensors.
 
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -23,7 +25,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 
 # every hand-written CUDA source of the package, by library name
-SOURCES = {"poseidon_gl": "poseidon_gl.cu"}
+SOURCES = {"poseidon_gl": "poseidon_gl.cu",
+           "poseidon_gl_mma": "poseidon_gl_mma.cu",
+           "probes": "probes.cu"}
 
 # -Xptxas -v makes the compiler report each kernel's registers and spills
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -43,8 +47,24 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _with_headers(path: Path, seen=None) -> bytes:
+    """The bytes of `path` followed by those of every header it includes
+    with quotes (and that these include), each once."""
+    seen = set() if seen is None else seen
+    seen.add(path)
+    text = path.read_bytes()
+    for inc in _INCLUDE.findall(text):
+        header = path.parent / inc.decode()
+        if header not in seen:
+            text += _with_headers(header, seen)
+    return text
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
+    src = _with_headers(CSRC / SOURCES[name])
     tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}_{tag}.so"
 

@@ -53,8 +53,10 @@ def _shr32(a):
 # --------------------------------------------------------------- conversions
 def from_u64(x, device) -> torch.Tensor:
     """numpy uint64 array (or python int) -> int64 tensor on `device`."""
-    a = np.ascontiguousarray(np.asarray(x, dtype=np.uint64))
-    return torch.from_numpy(a.view(np.int64).copy()).to(device)
+    a = np.asarray(x, dtype=np.uint64)
+    # ascontiguousarray would turn a 0-dim array into shape (1,): keep the shape
+    bits = np.ascontiguousarray(a).view(np.int64).reshape(a.shape).copy()
+    return torch.from_numpy(bits).to(device)
 
 
 def to_u64(x: torch.Tensor) -> np.ndarray:
@@ -276,9 +278,32 @@ def _sbox7(x):
     return mul(x3, x4)
 
 
-def permute12(state):
+def mds12_bytes(state):
+    """The same MDS multiply the way the tensor-core kernels do it: the
+    eight bytes of every state word ride one integer product
+    [12, 12] @ [12, 8 * lanes] (each sum <= 264 * 255 < 2^17, exact), and a
+    row is recombined as sum_lo + sum_hi * 2^32 from its bytes 0..3 and
+    4..7 (each sum below 2^42) with one fold. On the CPU the product is an
+    int64 matmul; CUDA has no integer matmul, so there it is a float32 one,
+    exact at these sizes."""
+    shape = state.shape
+    s = state.reshape(12, -1)
+    limbs = torch.cat([(s >> (8 * k)) & 0xFF for k in range(8)], dim=1)
+    m = torch.from_numpy(_MDS12).to(state.device)
+    if state.device.type == "cpu":
+        y = m @ limbs
+    else:
+        y = (m.to(torch.float32) @ limbs.to(torch.float32)).to(torch.int64)
+    y = y.reshape(12, 8, -1)
+    s_lo = sum(y[:, k] << (8 * k) for k in range(4))
+    s_hi = sum(y[:, k + 4] << (8 * k) for k in range(4))
+    return _fold_halves(s_lo, s_hi).reshape(shape)
+
+
+def permute12(state, mds=mds12):
     """Poseidon permutation (t=12, 4+22+4 rounds, x^7, dense MDS) on a
-    stacked state int64[12, ...]; canonical output."""
+    stacked state int64[12, ...]; canonical output. `mds` is the MDS layer
+    (mds12 or mds12_bytes: the same function)."""
     rc = from_u64(_round_constants(), state.device)
     rc = rc.reshape((30, 12) + (1,) * (state.dim() - 1))
     s = state
@@ -288,7 +313,7 @@ def permute12(state):
             s = torch.cat([_sbox7(s[:1]), s[1:]], dim=0)
         else:
             s = _sbox7(s)
-        s = mds12(s)
+        s = mds(s)
     return canonical(s)
 
 

@@ -14,18 +14,21 @@ RATE = 8
 OUT = 4
 
 
-def permute(F, state):
-    """One Poseidon permutation of a stacked state int64[12, ...]: the
-    Hopper kernel for a CUDA tensor, the plain version for a CPU tensor."""
+def permute(F, state, mxu=None):
+    """One Poseidon permutation of a stacked state int64[12, ...]: a Hopper
+    kernel for a CUDA tensor, the plain version for a CPU tensor. `mxu` in
+    {0, 1, 2} picks the kernel variant (poseidon_kernel.permute); None reads
+    SVT_POSEIDON_MXU. `functools.partial(permute, mxu=1)` carries a variant
+    into anything that takes a `permute` argument."""
     assert state.shape[0] == WIDTH
-    return poseidon_kernel.permute(state)
+    return poseidon_kernel.permute(state, mxu)
 
 
-def permute_plain(F, state):
+def permute_plain(F, state, mxu=0):
     """The same permutation through plain PyTorch ops on any device (what
-    the kernel is held against)."""
+    the kernels are held against)."""
     assert state.shape[0] == WIDTH
-    return poseidon_kernel.permute_plain(state)
+    return poseidon_kernel.permute_plain(state, mxu)
 
 
 def hash_n_to_m_no_pad(F, inputs, num_outputs: int, shape=(), permute=permute):

@@ -76,7 +76,7 @@ def test_permute_plain_matches_pallas_kernel_interpret():
 @pytest.mark.parametrize("lanes", [1, 5, 200])
 def test_cpu_wrapper_takes_plain_version_and_counts_no_launch(lanes):
     state = _state(100 + lanes, lanes)
-    before = tk.LAUNCHES
+    before = dict(tk.LAUNCHES)
     got = _torch_permute(tk.permute, state)
     assert tk.LAUNCHES == before
     assert (got == _golden(state)).all()

@@ -1,0 +1,172 @@
+"""stark_verifier_tpu_torch.ops.probes on the CPU: the plain PyTorch versions
+of the two rate probes (what the Hopper kernels are held against on the card,
+and what the wrappers run for a CPU tensor) against a restatement in numpy.
+
+The TPU probes themselves cannot serve as the reference here: their chain
+bodies are closures inside `tools/vpu_microbench.py:main`, so they cannot be
+imported, and its `pallas_call` has no interpret switch, so it cannot run
+without the chip. The numpy restatements below follow those bodies line by
+line (y*x, y+x, (y>>1)+x, y+(y<x), y*x+x, u32(f32(y))+x) in fixed-width
+numpy types, which wrap as the hardware does. Integer ops are compared
+exactly; the float32 multiply-add at rtol 1e-5.
+"""
+import numpy as np
+import pytest
+import torch
+
+from stark_verifier_tpu_torch.ops import probes
+
+CHAIN = 96
+
+
+def _np_step(op, y, x):
+    if op in ("mul_u32", "mul_lo_u64"):
+        return y * x
+    if op == "add_u32":
+        return y + x
+    if op == "shift_add_u32":
+        return (y >> np.uint32(1)) + x
+    if op == "cmp_add_u32":
+        return y + (y < x).astype(np.uint32)
+    if op == "fma_f32":
+        return y * x + x
+    if op == "cvt_u32_f32":
+        f = y.astype(np.float32)
+        back = np.minimum(f.astype(np.float64), 2.0**32 - 1).astype(np.uint32)
+        return back + x
+    if op == "mul_hi_u64":
+        prod = y.astype(object) * x.astype(object)
+        return np.array([int(p) >> 64 for p in prod], dtype=np.uint64)
+    if op == "mad_wide_u32":
+        return (y & np.uint64(0xFFFFFFFF)) * x.astype(np.uint64) + y
+    raise AssertionError(op)
+
+
+def _np_probe(op, x_t, chain, ilp):
+    _, x_dtype, out_dtype = probes.OPS[op]
+    unsigned = {torch.int32: np.uint32, torch.int64: np.uint64,
+                torch.float32: np.float32}
+    x = x_t.numpy().view(unsigned[x_dtype])
+    y_type = unsigned[out_dtype]
+    total = None
+    with np.errstate(over="ignore"):
+        for k in range(ilp):
+            if op == "fma_f32":
+                y = x + np.float32(0.125 * k)
+            else:
+                y = x.astype(y_type) + y_type(k)
+            for _ in range(chain):
+                y = _np_step(op, y, x)
+            total = y if total is None else total + y
+    return total
+
+
+@pytest.mark.parametrize("ilp", [1, 4])
+@pytest.mark.parametrize("op", list(probes.OPS))
+def test_alu_plain_matches_numpy(op, ilp):
+    rng = np.random.default_rng(len(op) * 10 + ilp)
+    x = probes.alu_input(op, 257, rng, "cpu")
+    got = probes.alu_plain(x, op, CHAIN, ilp)
+    want = _np_probe(op, x, CHAIN, ilp)
+    assert got.dtype == probes.OPS[op][2] and got.shape == x.shape
+    if op == "fma_f32":
+        # numpy rounds y*x and +x apart as the plain version does, but may
+        # sum the four chains in another association; and the kernel this
+        # stands beside fuses the two. x < 1 makes y -> y*x + x a
+        # contraction, so a rounding difference shrinks along the chain
+        # instead of growing: 1e-5 relative is generous.
+        assert np.isfinite(got.numpy()).all()
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=0)
+    else:
+        unsigned = np.uint32 if got.dtype == torch.int32 else np.uint64
+        assert (got.numpy().view(unsigned) == want).all()
+        assert (got != 0).any()  # the chain did not collapse to zero
+
+
+def test_alu_edge_operands():
+    """0, 1 and all-ones operands through every integer op."""
+    for op, (_, dtype, _) in probes.OPS.items():
+        if dtype == torch.float32:
+            continue
+        x = torch.tensor([0, 1, -1, 2**31 - 1, -2**31], dtype=dtype)
+        if op == "cvt_u32_f32":
+            x = torch.tensor([0, 1, 2**16 - 1, 2**24 + 1, 2**31 - 1], dtype=dtype)
+        got = probes.alu_plain(x, op, 33, 4)
+        unsigned = np.uint32 if got.dtype == torch.int32 else np.uint64
+        assert (got.numpy().view(unsigned) == _np_probe(op, x, 33, 4)).all(), op
+
+
+@pytest.mark.parametrize("op", list(probes.OPS))
+def test_alu_wrapper_takes_plain_version_on_cpu_and_counts_no_launch(op):
+    rng = np.random.default_rng(3)
+    x = probes.alu_input(op, 64, rng, "cpu")
+    before = dict(probes.LAUNCHES)
+    got = probes.alu_probe(x, op, chain=17, ilp=4)
+    assert probes.LAUNCHES == before
+    assert torch.equal(got, probes.alu_plain(x, op, 17, 4))
+    # no step: the operand itself (zero-extended where the result is wider)
+    same = x if op != "mad_wide_u32" else x.to(torch.int64) & 0xFFFFFFFF
+    assert torch.equal(probes.alu_probe(x, op, chain=0), same)
+
+
+@pytest.mark.parametrize("bad", ["op", "dtype", "ilp", "chain"])
+def test_alu_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    x = torch.ones(8, dtype=torch.int32)
+    if bad == "op":
+        with pytest.raises(ValueError, match="unknown op"):
+            probes.alu_probe(x, "div_u32")
+    elif bad == "dtype":
+        with pytest.raises(TypeError, match="int64"):
+            probes.alu_probe(x, "mul_lo_u64")
+    elif bad == "ilp":
+        with pytest.raises(ValueError, match="ilp"):
+            probes.alu_probe(x, "mul_u32", ilp=2)
+    else:
+        with pytest.raises(ValueError, match="chain"):
+            probes.alu_probe(x, "mul_u32", chain=-1)
+
+
+def _mma_inputs(seed, cols):
+    rng = np.random.default_rng(seed)
+    M = rng.integers(0, 64, (12, 12), dtype=np.uint8)
+    y = rng.integers(0, 256, (12, cols), dtype=np.uint8)
+    M[0, :] = 63        # the largest sums the probe allows
+    y[:, 0] = 255
+    return M, y
+
+
+@pytest.mark.parametrize("kind", list(probes.KINDS))
+def test_mma_probe_matches_numpy(kind):
+    """Both kinds compute one function; on the CPU both take the plain
+    version, which is compared exactly with an integer matmul in numpy."""
+    M, y = _mma_inputs(9, probes.MMA_BLOCK_COLS)
+    want = y.astype(np.int64)
+    for _ in range(30):
+        want = (M.astype(np.int64) @ want) % 256
+        assert want.max() < 256
+    before = dict(probes.LAUNCHES)
+    got = probes.mma_probe(torch.from_numpy(y), torch.from_numpy(M), kind)
+    assert probes.LAUNCHES == before
+    assert got.dtype == torch.uint8 and (got.numpy() == want).all()
+    # one step, so that the unreduced sums are seen too: below 2^18
+    assert (M.astype(np.int64) @ y.astype(np.int64)).max() < 2**18
+    one = probes.mma_plain(torch.from_numpy(y), torch.from_numpy(M), steps=1)
+    assert (one.numpy() == (M.astype(np.int64) @ y.astype(np.int64)) % 256).all()
+
+
+@pytest.mark.parametrize("bad", ["kind", "dtype", "shape", "columns"])
+def test_mma_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    M, y = _mma_inputs(1, probes.MMA_BLOCK_COLS)
+    M, y = torch.from_numpy(M), torch.from_numpy(y)
+    if bad == "kind":
+        with pytest.raises(ValueError, match="kind"):
+            probes.mma_probe(y, M, "bf16")
+    elif bad == "dtype":
+        with pytest.raises(TypeError):
+            probes.mma_probe(y.to(torch.int32), M)
+    elif bad == "shape":
+        with pytest.raises(ValueError, match="expected"):
+            probes.mma_probe(y[:8], M)
+    else:
+        with pytest.raises(ValueError, match="multiple"):
+            probes.mma_probe(y[:, :100], M)

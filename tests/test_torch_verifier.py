@@ -65,7 +65,7 @@ def test_challenges_match_reference(name, n):
     proofs, jcommon, jvk = _load(name, n)
     common, vk, vk_cap, digest, pa = _port_side(proofs, jcommon, jvk)
     pi_hash = tpg.hash_no_pad(F, TV._scalar_list(F, pa["public_inputs"]), shape=(n,))
-    ch = TVB._get_challenges_batched(F, common, pa, pi_hash, digest, n)
+    ch = TV.get_challenges(F, common, pa, pi_hash, digest, batch=(n,))
     u = F.to_u64
     for b, p in enumerate(proofs):
         jpa = JV.arrays_to_backend(gl, JV.proof_to_arrays(p))
@@ -214,8 +214,17 @@ def test_package_imports_without_jax():
         "import stark_verifier_tpu_torch\n"
         "from stark_verifier_tpu_torch import convert\n"
         "from stark_verifier_tpu_torch.models import flagship\n"
-        "from stark_verifier_tpu_torch.core import verifier_batched, challenger, merkle, gates\n"
-        "from stark_verifier_tpu_torch.ops import poseidon_kernel, cuda_build, hashers\n"
+        "from stark_verifier_tpu_torch.core import verifier, verifier_batched, challenger, merkle, gates\n"
+        "from stark_verifier_tpu_torch.ops import poseidon_kernel, probes, cuda_build, hashers\n"
+        "from stark_verifier_tpu_torch.utils import roofline\n"
+        "import importlib.util, pathlib\n"
+        "scripts = sorted(pathlib.Path('tools').glob('torch_*.py')) + [pathlib.Path('chip_smoke.py')]\n"
+        "names = {p.name for p in scripts}\n"
+        "assert {'torch_profile_main_path.py', 'torch_vpu_microbench.py',\n"
+        "        'torch_bench_poseidon_kernels.py', 'chip_smoke.py'} <= names, names\n"
+        "for path in scripts:\n"
+        "    spec = importlib.util.spec_from_file_location(path.stem, path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert 'stark_verifier_tpu' not in sys.modules\n"
         "assert 'triton' not in sys.modules\n"

@@ -5,7 +5,7 @@
 
 Loads fixtures/sem_zk20b64.npz, tiles it to the batch, and on the card
 
-  * times the three stages of `verify_batched` apart (host clock around work
+  * times the three phases of `verify_batched` apart (host clock around work
     that ends in torch.cuda.synchronize()): transcript (public-input hash +
     Fiat-Shamir replay), vanishing polynomial + quotient check, FRI (leaf
     hashes, Merkle walks, DEEP quotients, folds, final polynomial);
@@ -32,46 +32,26 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from stark_verifier_tpu_torch.core import verifier as V  # noqa: E402
-from stark_verifier_tpu_torch.core import verifier_batched as VB  # noqa: E402
-from stark_verifier_tpu_torch.core.rings import ExtRing  # noqa: E402
 from stark_verifier_tpu_torch.core.types import load_proofs  # noqa: E402
 from stark_verifier_tpu_torch.models import flagship as FS  # noqa: E402
-from stark_verifier_tpu_torch.ops import ext2, gl64  # noqa: E402
-from stark_verifier_tpu_torch.ops import poseidon_gl as pg  # noqa: E402
+from stark_verifier_tpu_torch.ops import gl64  # noqa: E402
 from stark_verifier_tpu_torch.ops import poseidon_kernel as pk  # noqa: E402
 
 
 def staged(F, common, vk_cap, digest, pa):
-    """verify_batched with a synchronise and a clock between its stages;
-    returns (accept bits, seconds by stage, kernel launches by stage)."""
+    """verify_batched's three phases with a synchronise and a clock between
+    them; returns (accept bits, seconds by stage, kernel launches by stage)."""
     def tick():
         torch.cuda.synchronize()
-        return time.perf_counter(), pk.LAUNCHES
+        return time.perf_counter(), sum(pk.LAUNCHES.values())
 
-    R = ExtRing(F)
-    B = pa["public_inputs"].shape[0]
-    perm = V._perm_for(F, common)
+    batch = (pa["public_inputs"].shape[0],)
     t0 = tick()
-    pi_hash = pg.hash_no_pad(F, V._scalar_list(F, pa["public_inputs"]), shape=(B,))
-    ch = VB._get_challenges_batched(F, common, pa, pi_hash, digest, B, perm)
+    pi_hash, ch = V.phase_challenges(F, common, digest, pa, batch=batch)
     t1 = tick()
-    vanishing, zeta_pow_deg = V.eval_vanishing_poly(F, common, ch, pa, pi_hash)
-    ok = None
-    z_h_zeta = R.sub(zeta_pow_deg, R.one())
-    quotient_list = V._ext_list(F, pa["open_quotient_polys"])
-    qdf = common.quotient_degree_factor
-    for i in range(common.config.num_challenges):
-        recombined = R.reduce_with_powers(
-            zeta_pow_deg, quotient_list[i * qdf : (i + 1) * qdf])
-        eq = ext2.equal(F, vanishing[i], R.mul(z_h_zeta, recombined))
-        ok = eq if ok is None else (ok & eq)
+    ok = V.phase_vanishing(F, common, pa, pi_hash, ch)
     t2 = tick()
-    reduced = [ext2.reduce_with_powers(F, ch.fri_alpha, b)
-               for b in V._opening_batches(F, pa)]
-    g_zeta = F.const(V._g_pow(V.ORDER >> common.degree_bits))
-    zeta_next = ext2.scalar_mul(F, ch.plonk_zeta, g_zeta)
-    ok = VB._verify_fri_batched(F, common, ch, pa, vk_cap, reduced,
-                                ch.plonk_zeta, zeta_next, ok, B, perm)
+    ok = V.phase_fri(F, common, vk_cap, pa, ch, ok, batch=batch)
     t3 = tick()
     names = ("transcript", "vanishing", "fri")
     marks = (t0, t1, t2, t3)
