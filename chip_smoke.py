@@ -30,7 +30,17 @@ needs one CUDA card (built for Hopper, sm_90a), `nvcc`, and no network. It
      make_verifier_fn_phased) on the first proofs of the fixture under each
      variant: accepted, a corrupted proof rejected, bits equal to the
      batched path's, kernels launched at 1, 28 and 112 lanes;
-  6. prints one JSON line per phase, the kernels' line, and as the last line
+  6. holds the BN254 bridge kernel (bridge_permute12) against its plain
+     version on the card at every lane count the wrapped path gives it,
+     edge values in every state position, and times it;
+  7. drives the bn254-wrapped path: the 16 proofs of the wrapper circuit
+     (degree 2^13, 28 queries, the BN254 bridge as transcript and Merkle
+     hash) tiled to a batch of 256 through make_verifier_fn_batched on the
+     card: all accepted, corrupted lanes and only those rejected, 230
+     bridge launches and 2 Poseidon launches a batch (the public-input
+     hash) and no other kernel, challenges equal to the CPU path's, proof 0
+     through make_verifier_fn with the same bit, and ms a batch;
+  8. prints one JSON line per phase, the kernels' line, and as the last line
      {"ok": true, "device": {...}}.
 
 Any failure ends the run with a non-zero exit code and no "ok" line. There
@@ -52,13 +62,16 @@ import torch
 from stark_verifier_tpu_torch.core import verifier as V
 from stark_verifier_tpu_torch.core.types import load_proofs
 from stark_verifier_tpu_torch.models import flagship as FS
-from stark_verifier_tpu_torch.ops import cuda_build, gl64, probes
+from stark_verifier_tpu_torch.ops import cuda_build, gl64, hashers, probes
+from stark_verifier_tpu_torch.ops import poseidon_bn254_kernel as bk
 from stark_verifier_tpu_torch.ops import poseidon_gl as pg
 from stark_verifier_tpu_torch.ops import poseidon_kernel as pk
 
 REPO = Path(__file__).resolve().parent
 FIXTURE = REPO / "fixtures" / "sem_zk20b64.npz"
 BATCH = 1024
+WRAPPED = REPO / "fixtures" / "sem_wrapped16.npz"
+WRAPPED_BATCH = 256
 SEED = 20
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): 3.35 TB/s of device
@@ -86,6 +99,38 @@ PEAK_INT8_OPS_PER_S = 1979e12
 INT32_INSTR_PER_PERMUTATION = 472 * 20 + 360 * 9 + 30 * 410
 BYTES_PER_PERMUTATION = 2 * 12 * 8
 
+# The same count for the BN254 bridge permutation, one lane: the least that
+# the function needs, not what csrc/poseidon_bn254.cu executes (that kernel
+# reduces every product and subtracts after every add). Units:
+#   w, a 64x64->128 word product accumulated into a running multiword sum:
+#     4 wide 32x32 multiply-adds and 4 carry adds -> 8;
+#   product of two Fr elements of four words, unreduced: 16 w -> 128;
+#     a square: 10 w and 12 shifts to double the cross products -> 92;
+#   Montgomery reduction of a sum of products: in each of 4 steps
+#     m = t0 (-1/q) mod 2^64 (3 multiplies) and m q (4 w); then one
+#     conditional subtraction of q (16), so that every operand of the next
+#     product fits four words -> 156;
+#   add, lazy (no subtraction): four 64-bit adds with carry -> 8.
+# Per permutation:
+#   MDS, 68 layers: 25 products, each row's five summed in one running sum,
+#     and 5 reductions -> 1,700 products, 340 reductions;
+#   s-boxes x^5, 5 in each of 8 full rounds and 1 in each of 60 partial:
+#     100 of 2 squares and 1 product, 300 reductions;
+#   round constants: 5 adds in each of 68 rounds -> 340 adds;
+#   into Montgomery form: 4 products of a packed three-word value by R^2
+#     (12 w) and 4 reductions; out of it: 4 reductions;
+#   packing, from the code: for each of 4 elements 3 Goldilocks
+#     canonicalisations (6) and 3 w for x2 p + x1, then times p plus x0
+#     -> 168;
+#   unpacking, from the code: for each of 4 elements 6 Goldilocks folds (12,
+#     as in the Poseidon count above), 3 canonicalisations, 10 for the
+#     subtractions over three and two words, and the two exact divisions'
+#     products with 1/p: 4 word products with two adds (12) and 5 that keep
+#     only the low word (a low product, 3, and two 64-bit adds, 4) -> 732.
+BRIDGE_INT32_INSTR_PER_PERMUTATION = (
+    1700 * 128 + 100 * (2 * 92 + 128) + 4 * 12 * 8
+    + (340 + 300 + 4 + 4) * 156 + 340 * 8 + 168 + 732)
+
 KERNEL_FILES = {
     "poseidon_permute": ("stark_verifier_tpu_torch/ops/csrc/poseidon_gl.cu",
                          "stark_verifier_tpu/ops/pallas/poseidon_kernel.py:331"),
@@ -97,7 +142,12 @@ KERNEL_FILES = {
                   "tools/vpu_microbench.py:46"),
     "mma_probe": ("stark_verifier_tpu_torch/ops/csrc/probes.cu",
                   "tools/vpu_microbench.py:128"),
+    # an addition: the JAX package computes the bridge with jnp ops, no
+    # Pallas call; its counterpart is named here
+    "bridge_permute12": ("stark_verifier_tpu_torch/ops/csrc/poseidon_bn254.cu",
+                         "stark_verifier_tpu/ops/fr_bn254_jax.py:321"),
 }
+ADDITIONS = {"bridge_permute12"}
 PERMUTES = {m: functools.partial(pg.permute, mxu=m) for m in (0, 1, 2)}
 
 EDGES = np.array(
@@ -166,6 +216,7 @@ def phase_build():
     for kernel in pk.KERNELS:          # load, bind, upload the round constants
         pk._library(pk._HOME[kernel][0])
     probes._library()
+    bk._library()
     seconds = time.time() - t0
     ptxas = {name: [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln]
@@ -179,7 +230,8 @@ def kernel_row(name, ms, plain_ms, t_bytes, t_ops, library_ms=None,
                max_abs_err=0.0, **extra):
     source, replaces = KERNEL_FILES[name]
     return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": 0, "max_abs_err": max_abs_err,
+            "replaces": replaces, "addition": name in ADDITIONS,
+            "launches": 0, "max_abs_err": max_abs_err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library_ms, "bound_bytes_ms": t_bytes,
@@ -190,7 +242,8 @@ def phase_poseidon_kernels(device, rows):
     """The three Poseidon kernels against their plain versions and against
     each other on the card, then timed in turns."""
     rng = np.random.default_rng(SEED)
-    lane_counts = [1, 7, 8, 28, 112, 1024, 1025, 28 * BATCH, 4 * 28 * BATCH]
+    lane_counts = [1, 7, 8, 28, 112, WRAPPED_BATCH, 1024, 1025, 28 * BATCH,
+                   4 * 28 * BATCH]
     for lanes in lane_counts:
         x = gl64.from_u64(edge_state(rng, lanes), device)
         first = None
@@ -313,7 +366,8 @@ def phase_probes(device, rows):
     check(counts["alu_probe"] == len(probes.OPS) * 2 * (warm + reps)
           and counts["mma_probe"] == len(probes.KINDS) * (warm + reps),
           f"the probes' timed loop counted {counts}")
-    check(all(c == 0 for c in pk.LAUNCHES.values()),
+    check(all(c == 0 for c in pk.LAUNCHES.values())
+          and not any(bk.LAUNCHES.values()),
           "the probes' path launched a Poseidon kernel")
 
     # one wide multiply-add a step on the 64-lane integer pipe
@@ -350,11 +404,13 @@ def phase_probes(device, rows):
           "alu_probe": rows["alu_probe"], "mma_probe": rows["mma_probe"]})
 
 
-def challenges_u64(F, common, digest, pa, perm):
-    """Public-input hash and every Fiat-Shamir challenge as uint64 numpy."""
+def challenges_u64(F, common, digest, pa, perm, inner=None):
+    """Public-input hash and every Fiat-Shamir challenge as uint64 numpy.
+    `perm` is the transcript's permutation and `inner` the public-input
+    hash's; without `inner`, `perm` hashes the public inputs too."""
     batch = tuple(pa["public_inputs"].shape[:-1])
     pi_hash, ch = V.phase_challenges(F, common, digest, pa, permute=perm,
-                                     batch=batch)
+                                     batch=batch, inner_permute=inner or perm)
     flat = list(pi_hash)
     for name in ("plonk_betas", "plonk_gammas", "plonk_alphas",
                  "fri_query_indices"):
@@ -378,7 +434,7 @@ def corrupt(batched, lanes):
 
 
 def reset_counts():
-    for counts in (pk.LAUNCHES, probes.LAUNCHES):
+    for counts in (pk.LAUNCHES, probes.LAUNCHES, bk.LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -421,7 +477,8 @@ def phase_main_path(device, rows):
         calls[0] += 1
         return pg.permute(F_, state)
 
-    fn_count, _ = FS.make_verifier_fn_batched(common, vk, permute=counting)
+    fn_count, _ = FS.make_verifier_fn_batched(common, vk, permute=counting,
+                                              inner_permute=counting)
     ok64 = fn_count(pa64)
     n_calls = calls[0]
 
@@ -430,7 +487,7 @@ def phase_main_path(device, rows):
     launches, ms_once, ch_by = {}, {}, {}
     for mxu, name in enumerate(pk.KERNELS):
         fn_m = fn if mxu == default else FS.make_verifier_fn_batched(
-            common, vk, permute=PERMUTES[mxu])[0]
+            common, vk, permute=PERMUTES[mxu], inner_permute=PERMUTES[mxu])[0]
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()
@@ -446,8 +503,10 @@ def phase_main_path(device, rows):
               f"mxu={mxu}: {counts[name]} launches of {name} for {n_calls} "
               f"permutation calls")
         check(all(c == 0 for k, c in counts.items() if k != name)
-              and not any(probes.LAUNCHES.values()),
-              f"mxu={mxu}: another kernel was launched: {counts}, {probes.LAUNCHES}")
+              and not any(probes.LAUNCHES.values())
+              and not any(bk.LAUNCHES.values()),
+              f"mxu={mxu}: another kernel was launched: {counts}, "
+              f"{probes.LAUNCHES}, {bk.LAUNCHES}")
         launches[name] = counts[name]
         # corrupted lanes, and only those, are rejected
         ok_bad = fn_m(pa_bad)
@@ -460,7 +519,8 @@ def phase_main_path(device, rows):
     ch_kernel = ch_by[default]
 
     # ---- the same path with the plain permutation on the card, B = 64
-    fn_plain, _ = FS.make_verifier_fn_batched(common, vk, permute=pg.permute_plain)
+    fn_plain, _ = FS.make_verifier_fn_batched(common, vk, permute=pg.permute_plain,
+                                              inner_permute=pg.permute_plain)
     before = dict(pk.LAUNCHES)
     ok64_plain = fn_plain(pa64)
     ch_plain = challenges_u64(F, common, digest, pa64, pg.permute_plain)
@@ -535,7 +595,8 @@ def phase_per_proof(device):
             return pg.permute(F_, state, mxu)
 
         for maker in (FS.make_verifier_fn, FS.make_verifier_fn_phased):
-            fn, _ = maker(common, vk, permute=recording)  # device="cuda"
+            fn, _ = maker(common, vk, permute=recording,  # device="cuda"
+                          inner_permute=recording)
             del lane_counts[:]
             reset_counts()
             t0 = time.perf_counter()
@@ -550,10 +611,12 @@ def phase_per_proof(device):
                   f"{maker.__name__}, mxu={mxu}: {pk.LAUNCHES[name]} launches for "
                   f"{len(lane_counts)} calls, widest {max(lane_counts)} lanes")
             check(sum(pk.LAUNCHES.values()) == pk.LAUNCHES[name]
-                  and not any(probes.LAUNCHES.values()),
+                  and not any(probes.LAUNCHES.values())
+                  and not any(bk.LAUNCHES.values()),
                   f"{maker.__name__}, mxu={mxu}: another kernel was launched")
             seen[name] = sorted(set(lane_counts))
-        ok_bad = FS.make_verifier_fn(common, vk, permute=PERMUTES[mxu])[0](pa_bad)
+        ok_bad = FS.make_verifier_fn(common, vk, permute=PERMUTES[mxu],
+                                     inner_permute=PERMUTES[mxu])[0](pa_bad)
         check(ok_bad.tolist() == [False, True],
               f"make_verifier_fn, mxu={mxu}: corrupted proof gave {ok_bad.tolist()}")
     emit({"phase": "per_proof", "proofs": n, "equal_to_batched": True,
@@ -562,21 +625,163 @@ def phase_per_proof(device):
           "seconds_per_proof": seconds})
 
 
+def phase_bridge_kernel(device, rows):
+    """bridge_permute12 against its plain version on the card at every lane
+    count of the wrapped path (1, 28 and 112 a proof; 256, 7,168 and 28,672
+    a batch of 256), edge values in every state position; timed by CUDA
+    events at the three batch lane counts."""
+    rng = np.random.default_rng(SEED + 2)
+    q = 28  # FRI queries of the wrapped circuit (phase_wrapped checks it)
+    lane_counts = [1, q, 4 * q, WRAPPED_BATCH, q * WRAPPED_BATCH, 4 * q * WRAPPED_BATCH]
+    plain_ms, inputs = {}, {}
+    for lanes in lane_counts:
+        x = inputs[lanes] = gl64.from_u64(edge_state(rng, lanes), device)
+        got = bk.permute(x)
+        torch.cuda.synchronize()
+        want, plain_ms[lanes] = timed_plain(lambda: bk.permute_plain(x))
+        if not torch.equal(got, want):
+            bad = int((got != want).any(0).sum())
+            fail(f"bridge_permute12 != its plain version at {lanes} lanes "
+                 f"({bad} lanes differ)")
+    timed = {}
+    for lanes in lane_counts[3:]:   # timed on the states it was compared on
+        x = inputs[lanes]
+        for _ in range(3):
+            bk.permute(x)
+        timed[lanes] = cuda_ms(lambda: bk.permute(x), 20)
+    lanes = lane_counts[-1]
+    t_bytes = lanes * BYTES_PER_PERMUTATION / PEAK_BYTES_PER_S * 1e3
+    t_ops = lanes * BRIDGE_INT32_INSTR_PER_PERMUTATION / PEAK_INT32_INSTR_PER_S * 1e3
+    # library_ms None: no PyTorch call computes this function
+    rows["bridge_permute12"] = kernel_row(
+        "bridge_permute12", timed[lanes], plain_ms[lanes], t_bytes, t_ops,
+        lanes=lanes, ms_by_lanes=timed, plain_ms_by_lanes=plain_ms,
+        permutations_per_s=lanes / (timed[lanes] * 1e-3))
+    emit({"phase": "bridge_kernel", "lane_counts": lane_counts,
+          "equal_to_plain": True, "bridge_permute12": rows["bridge_permute12"]})
+
+
+def corrupt_wrapped(batched, lanes):
+    """One bit flipped in four different places, one place per lane: an
+    opening, a sibling of the merged initial walk, a fold-layer sibling,
+    the final polynomial."""
+    bad = {k: v.copy() for k, v in batched.items()}
+    one = np.uint64(1)
+    bad["open_wires"][lanes[0], 7, 1] ^= one
+    bad["init_sibs_1"][lanes[1], 9, 5, 2] ^= one
+    bad["step_sibs_3"][lanes[2], 20, 4, 0] ^= one
+    bad["final_poly"][lanes[3], 2, 0] ^= one
+    return bad
+
+
+def phase_wrapped(device, rows):
+    """The bn254-wrapped path: the wrapper circuit's 16 proofs tiled to a
+    batch of 256 through make_verifier_fn_batched on the card."""
+    proofs, common, vk = load_proofs(WRAPPED)
+    cfg = common.config.fri_config
+    check(common.config.hasher == "bn254" and common.degree_bits == 13
+          and cfg.num_query_rounds == 28 and cfg.cap_height == 0
+          and len(proofs) == 16,
+          "the fixture is not the bn254-wrapped circuit")
+    distinct = len(proofs)
+    while len(proofs) < WRAPPED_BATCH:
+        proofs = proofs + proofs
+    batched = FS.batched_arrays(proofs[:WRAPPED_BATCH])
+    fn, to_device = FS.make_verifier_fn_batched(common, vk)  # device="cuda"
+    pa = to_device(batched)
+    lanes = [1, WRAPPED_BATCH * 3 // 10, WRAPPED_BATCH // 2, WRAPPED_BATCH - 1]
+    pa_bad = to_device(corrupt_wrapped(batched, lanes))
+    expect = torch.ones(WRAPPED_BATCH, dtype=torch.bool)
+    expect[lanes] = False
+    F = gl64.Field(device)
+    digest = F.from_u64(vk.circuit_digest)
+
+    # ---- one batch, counted
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    ok = fn(pa)
+    torch.cuda.synchronize()
+    ms_first = (time.perf_counter() - t0) * 1e3
+    counts = {**pk.LAUNCHES, **bk.LAUNCHES, **probes.LAUNCHES}
+    check(ok.dtype == torch.bool and tuple(ok.shape) == (WRAPPED_BATCH,),
+          f"accept bits have shape {tuple(ok.shape)} and type {ok.dtype}")
+    check(bool(ok.all()), f"{int((~ok).sum())} honest wrapped proofs were rejected")
+    default = pk.KERNELS[pk._use_mxu()]
+    check(counts["bridge_permute12"] == 230 and counts[default] == 2
+          and all(c == 0 for k, c in counts.items()
+                  if k not in ("bridge_permute12", default)),
+          f"launches in one wrapped batch: {counts}")
+    rows["bridge_permute12"]["launches"] = counts["bridge_permute12"]
+    ok_bad = fn(pa_bad)
+    check(torch.equal(ok_bad.cpu(), expect),
+          f"rejected lanes {torch.nonzero(~ok_bad.cpu()).flatten().tolist()}, "
+          f"expected {lanes}")
+
+    # ---- challenges of lanes 0 and 1: the card against the CPU path
+    two = {k: v[:2] for k, v in batched.items()}
+    ch_card = challenges_u64(F, common, digest, to_device(two),
+                             hashers.bridge_permute, pg.permute)
+    Fc = gl64.Field("cpu")
+    _, to_cpu = FS.make_verifier_fn_batched(common, vk, device="cpu")
+    ch_cpu = challenges_u64(Fc, common, Fc.from_u64(vk.circuit_digest),
+                            to_cpu(two), hashers.bridge_permute, pg.permute)
+    check(np.array_equal(ch_card, ch_cpu),
+          "wrapped challenges differ between the card and the CPU")
+
+    # ---- proof 0 through the per-proof entry point
+    one_fn, _ = FS.make_verifier_fn(common, vk)  # device="cuda"
+    ok_one = one_fn({k: v[:1] for k, v in pa.items()})
+    check(ok_one.tolist() == [True] and bool(ok[0]),
+          f"make_verifier_fn gave {ok_one.tolist()} for wrapped proof 0")
+
+    # ---- steady state
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ok = fn(pa)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    check(bool(ok.all()), "a repetition rejected an honest wrapped proof")
+    ms = float(np.median(times)) * 1e3
+    emit({"phase": "wrapped", "fixture": WRAPPED.name, "distinct": distinct,
+          "batch": WRAPPED_BATCH, "hasher": common.config.hasher,
+          "degree_bits": common.degree_bits, "queries": cfg.num_query_rounds,
+          "cap_height": cfg.cap_height,
+          "fold_layers": len(common.fri_params.reduction_arity_bits),
+          "gates": [type(g).__name__ for g in common.gates],
+          "accepted": int(ok.sum()), "rejected_lanes": lanes,
+          "launches_per_batch": {k: c for k, c in counts.items() if c},
+          "challenges_equal_to_cpu": True, "per_proof_equal": True,
+          "ms_first_batch": ms_first, "ms_per_batch": ms,
+          "ms_per_batch_all": [t * 1e3 for t in times],
+          "proofs_per_s": WRAPPED_BATCH / (ms * 1e-3),
+          "peak_device_bytes": torch.cuda.max_memory_allocated()})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device: this script runs on the GPU only",
               file=sys.stderr)
         sys.exit(1)
     device = torch.device("cuda")
+    t_start = time.time()
     name, smi_line = phase_device()
-    phase_build()
-    rows = {}
-    phase_poseidon_kernels(device, rows)
-    phase_probes(device, rows)
-    phase_main_path(device, rows)
-    phase_per_proof(device)
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    rows, seconds = {}, {}
+    for phase, args in ((phase_build, ()), (phase_poseidon_kernels, (device, rows)),
+                        (phase_probes, (device, rows)),
+                        (phase_main_path, (device, rows)),
+                        (phase_per_proof, (device,)),
+                        (phase_bridge_kernel, (device, rows)),
+                        (phase_wrapped, (device, rows))):
+        t0 = time.time()
+        phase(*args)
+        seconds[phase.__name__[len("phase_"):]] = round(time.time() - t0, 1)
+    emit({"phase": "seconds", "by_phase": seconds,
+          "total": round(time.time() - t_start, 1)})
+    keys = ("name", "route", "source", "replaces", "addition", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi_line, flush=True)
     emit({"kernels": [{k: rows[n][k] for k in keys} for n in KERNEL_FILES]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,18 +1,22 @@
 """plonky2 custom-gate constraint evaluators, ring-generic.
 
 Each gate evaluates its unfiltered constraints over an abstract ring R
-(core/rings.py); the verifier instantiates R = GF(p^2) at zeta. This is the
-registry of plonky2's gates as far as the port has them: the five gates of
-the Semaphore circuit (Noop, Constant, PublicInput, BaseSum, Poseidon). Any
-other gate id raises `NotImplementedError`.
+(core/rings.py); the verifier instantiates R = GF(p^2) at zeta, and every
+gate but Poseidon also evaluates over R = GF(p) (BaseRing). This is the
+registry of the twelve plonky2 gates the JAX package knows: Noop, Constant,
+PublicInput, BaseSum, Arithmetic, ArithmeticExtension, MulExtension,
+RandomAccess, Reducing, ReducingExtension, PoseidonMds and Poseidon.
 
-Over the extension ring the wide gates stack their lanes into one tensor
-axis, so a constraint family costs one chain of tensor ops rather than one
-chain per constraint: evaluated constraint by constraint, the Poseidon gate
-alone would be tens of thousands of tiny device launches per batch.
+Over the extension ring the wide gates stack their ops, copies or
+coefficients into one tensor axis, so a constraint family costs one chain
+of tensor ops rather than one chain per constraint: evaluated constraint by
+constraint, the Poseidon gate alone would be tens of thousands of tiny
+device launches per batch. Over the base ring they are plain loops, as in
+the JAX package.
 """
 from __future__ import annotations
 
+import abc
 import re
 
 import numpy as np
@@ -28,7 +32,17 @@ from ..ops._poseidon_gl_constants import (
     MDS_MATRIX_CIRC,
     MDS_MATRIX_DIAG,
 )
-from .rings import ExtRing
+from .rings import (
+    ExtRing,
+    alg_from_ring,
+    alg_mul,
+    alg_mul_add,
+    alg_scalar_mul,
+    alg_scalar_mul_add,
+    alg_small_mul_add,
+    alg_sub,
+    alg_zero,
+)
 
 T = 12
 R_F_HALF = 4
@@ -38,20 +52,128 @@ R_P = 22
 UNUSED_SELECTOR = (1 << 32) - 1
 
 
-class Gate:
+class Gate(abc.ABC):
     id: str = "?"
     degree: int = 0
     num_constraints: int = 0
     num_constants: int = 0  # gate-constant polynomials consumed
 
+    @abc.abstractmethod
     def eval_unfiltered(self, R, local_constants, local_wires, pi_hash):
-        raise NotImplementedError
+        """The gate's constraints (a list of R elements) at one row."""
 
+    @abc.abstractmethod
     def num_wires_used(self) -> int:
-        raise NotImplementedError
+        """How many of the row's wires the gate reads."""
 
     def __repr__(self):
         return self.id
+
+
+def _alg_wires(W, start):
+    """Two consecutive wires as one extension-algebra element."""
+    return (W[start], W[start + 1])
+
+
+class ArithmeticGate(Gate):
+    """out = c0 * m0 * m1 + c1 * addend, `num_ops` per row (plonky2
+    gates/arithmetic_base.rs)."""
+
+    degree = 3
+    num_constants = 2
+
+    def __init__(self, num_ops=20):
+        self.num_ops = num_ops
+        self.id = f"ArithmeticGate {{ num_ops: {num_ops} }}"
+        self.num_constraints = num_ops
+
+    def wires(self, i):
+        return (4 * i, 4 * i + 1, 4 * i + 2, 4 * i + 3)
+
+    def num_wires_used(self):
+        return 4 * self.num_ops
+
+    def eval_unfiltered(self, R, C, W, pi):
+        c0, c1 = C[0], C[1]
+        if isinstance(R, ExtRing):
+            F = R.F
+            w = _block(F, W, 0, self.num_ops, 4)
+            m0, m1, ad, ou = (_col(w, k) for k in range(4))
+            computed = ext2.add(F, ext2.mul(F, ext2.mul(F, m0, m1), c0),
+                                ext2.mul(F, ad, c1))
+            return _se_unstack(F, ext2.sub(F, ou, computed))
+        out = []
+        for i in range(self.num_ops):
+            w0, w1, wa, wo = self.wires(i)
+            computed = R.add(R.mul(R.mul(W[w0], W[w1]), c0), R.mul(W[wa], c1))
+            out.append(R.sub(W[wo], computed))
+        return out
+
+
+class ArithmeticExtensionGate(Gate):
+    """The same op over the D=2 extension algebra, `num_ops` per row
+    (plonky2 gates/arithmetic_extension.rs)."""
+
+    degree = 3
+    num_constants = 2
+
+    def __init__(self, num_ops=10):
+        self.num_ops = num_ops
+        self.id = f"ArithmeticExtensionGate {{ num_ops: {num_ops} }}"
+        self.num_constraints = 2 * num_ops
+
+    def num_wires_used(self):
+        return 8 * self.num_ops
+
+    def eval_unfiltered(self, R, C, W, pi):
+        c0, c1 = C[0], C[1]
+        if isinstance(R, ExtRing):
+            # all ops on one stacked axis: a constraint reads only wires
+            w = _block(R.F, W, 0, self.num_ops, 8)
+            m0, m1, ad, o = (_alg_col(w, 2 * k) for k in range(4))
+            computed = alg_scalar_mul_add(
+                R, c1, ad, alg_scalar_mul(R, c0, alg_mul(R, m0, m1)))
+            return _alg_rows(R.F, alg_sub(R, o, computed))
+        out = []
+        for i in range(self.num_ops):
+            b = 8 * i
+            m0, m1 = _alg_wires(W, b), _alg_wires(W, b + 2)
+            ad, o = _alg_wires(W, b + 4), _alg_wires(W, b + 6)
+            computed = alg_scalar_mul_add(
+                R, c1, ad, alg_scalar_mul(R, c0, alg_mul(R, m0, m1)))
+            out.extend(alg_sub(R, o, computed))
+        return out
+
+
+class MulExtensionGate(Gate):
+    """out = c0 * m0 * m1 over the extension algebra, `num_ops` per row
+    (plonky2 gates/multiplication_extension.rs)."""
+
+    degree = 3
+    num_constants = 1
+
+    def __init__(self, num_ops=13):
+        self.num_ops = num_ops
+        self.id = f"MulExtensionGate {{ num_ops: {num_ops} }}"
+        self.num_constraints = 2 * num_ops
+
+    def num_wires_used(self):
+        return 6 * self.num_ops
+
+    def eval_unfiltered(self, R, C, W, pi):
+        c0 = C[0]
+        if isinstance(R, ExtRing):
+            w = _block(R.F, W, 0, self.num_ops, 6)
+            m0, m1, o = (_alg_col(w, 2 * k) for k in range(3))
+            computed = alg_scalar_mul(R, c0, alg_mul(R, m0, m1))
+            return _alg_rows(R.F, alg_sub(R, o, computed))
+        out = []
+        for i in range(self.num_ops):
+            b = 6 * i
+            m0, m1, o = (_alg_wires(W, b + 2 * k) for k in range(3))
+            computed = alg_scalar_mul(R, c0, alg_mul(R, m0, m1))
+            out.extend(alg_sub(R, o, computed))
+        return out
 
 
 class BaseSumGate(Gate):
@@ -133,10 +255,249 @@ class PublicInputGate(Gate):
         return [R.sub(W[i], pi[i]) for i in range(4)]
 
 
+class RandomAccessGate(Gate):
+    """Binary-indexed list access: `num_copies` lists of 2^bits items, each
+    with an index wire, its bits and a claimed element (plonky2
+    gates/random_access.rs)."""
+
+    def __init__(self, bits, num_copies, num_extra_constants=0):
+        self.bits = bits
+        self.num_copies = num_copies
+        self.num_extra_constants = num_extra_constants
+        self.num_constants = num_extra_constants
+        self.degree = bits + 1
+        self.id = (
+            f"RandomAccessGate {{ bits: {bits}, num_copies: {num_copies}, "
+            f"num_extra_constants: {num_extra_constants}, _phantom: "
+            f"PhantomData<plonky2_field::goldilocks_field::GoldilocksField> }}<D=2>"
+        )
+        self.num_constraints = num_copies * (2 + bits) + num_extra_constants
+
+    def vec_size(self):
+        return 1 << self.bits
+
+    def wire_access_index(self, copy):
+        return (2 + self.vec_size()) * copy
+
+    def wire_claimed_element(self, copy):
+        return (2 + self.vec_size()) * copy + 1
+
+    def wire_list_item(self, i, copy):
+        return (2 + self.vec_size()) * copy + 2 + i
+
+    def start_extra_constants(self):
+        return (2 + self.vec_size()) * self.num_copies
+
+    def wire_extra_constant(self, i):
+        return self.start_extra_constants() + i
+
+    def num_routed_wires_used(self):
+        return self.start_extra_constants() + self.num_extra_constants
+
+    def wire_bit(self, i, copy):
+        return self.num_routed_wires_used() + copy * self.bits + i
+
+    def num_wires_used(self):
+        return self.num_routed_wires_used() + self.num_copies * self.bits
+
+    def eval_unfiltered(self, R, C, W, pi):
+        if isinstance(R, ExtRing):
+            out = self._eval_stacked(R, W)
+        else:
+            out = []
+            for copy in range(self.num_copies):
+                items = [W[self.wire_list_item(i, copy)]
+                         for i in range(self.vec_size())]
+                bits = [W[self.wire_bit(i, copy)] for i in range(self.bits)]
+                out.extend(R.sub(R.mul(b, b), b) for b in bits)
+                recon = R.reduce_with_powers(R.const(2), bits)
+                out.append(R.sub(recon, W[self.wire_access_index(copy)]))
+                for b in bits:
+                    # select(b, y, x) = b * (y - x) + x
+                    items = [R.mul_add(b, R.sub(items[2 * k + 1], items[2 * k]),
+                                       items[2 * k])
+                             for k in range(len(items) // 2)]
+                out.append(R.sub(items[0], W[self.wire_claimed_element(copy)]))
+        for i in range(self.num_extra_constants):
+            out.append(R.sub(C[i], W[self.wire_extra_constant(i)]))
+        return out
+
+    def _eval_stacked(self, R, W):
+        """The copies on one stacked axis (they are independent), the bits on
+        another: one select tree for all copies, one boolean check for all
+        bits."""
+        F = R.F
+        cn, nb = self.num_copies, self.bits
+        lists = _block(F, W, 0, cn, 2 + self.vec_size())      # [cn, 2 + 2^nb]
+        bits = _block(F, W, self.num_routed_wires_used(), cn, nb)  # [cn, nb]
+        boo = ext2.sub(F, ext2.mul(F, bits, bits), bits)
+        recon = R.reduce_with_powers(R.const(2),
+                                     [_col(bits, i) for i in range(nb)])
+        items = (lists[0][:, 2:], lists[1][:, 2:])
+        for i in range(nb):
+            b = (bits[0][:, i : i + 1], bits[1][:, i : i + 1])
+            lo = (items[0][:, 0::2], items[1][:, 0::2])
+            hi = (items[0][:, 1::2], items[1][:, 1::2])
+            items = ext2.mul_add(F, b, ext2.sub(F, hi, lo), lo)
+        # per copy: the nb boolean checks, the index, the claimed element
+        recon_d = ext2.sub(F, recon, _col(lists, 0))
+        sel_d = ext2.sub(F, _col(items, 0), _col(lists, 1))
+        rows = tuple(
+            F.concat([boo[k], recon_d[k][:, None], sel_d[k][:, None]], axis=1)
+            for k in range(2))
+        return _rows(F, rows)
+
+
+class ReducingGate(Gate):
+    """Running Horner accumulator over base-field coefficients:
+    acc_i = acc_{i-1} * alpha + coeff_i in the extension algebra (plonky2
+    gates/reducing.rs)."""
+
+    degree = 2
+    num_constants = 0
+    START_COEFFS = 6
+
+    def __init__(self, num_coeffs=43):
+        self.num_coeffs = num_coeffs
+        self.id = f"ReducingGate {{ num_coeffs: {num_coeffs} }}"
+        self.num_constraints = 2 * num_coeffs
+
+    def wires_output(self):
+        return 0
+
+    def wires_alpha(self):
+        return 2
+
+    def wires_old_acc(self):
+        return 4
+
+    def wire_coeff(self, i):
+        return self.START_COEFFS + i
+
+    def start_accs(self):
+        return self.START_COEFFS + self.num_coeffs
+
+    def wires_acc(self, i):
+        if i == self.num_coeffs - 1:
+            return 0
+        return self.start_accs() + 2 * i
+
+    def num_wires_used(self):
+        return self.start_accs() + 2 * (self.num_coeffs - 1)
+
+    def eval_unfiltered(self, R, C, W, pi):
+        alpha = _alg_wires(W, 2)
+        if isinstance(R, ExtRing):
+            # every accumulator is a wire, so the Horner steps are
+            # independent constraints: one stacked axis
+            F = R.F
+            prevs, accs = _horner_accs(F, W, self.start_accs(), self.num_coeffs)
+            coeffs = _block(F, W, self.START_COEFFS, self.num_coeffs, 1)
+            step = alg_mul(R, prevs, alpha)
+            tmp = (ext2.sub(F, ext2.add(F, step[0], _col(coeffs, 0)), accs[0]),
+                   ext2.sub(F, step[1], accs[1]))
+            return _alg_rows(F, tmp)
+        acc = _alg_wires(W, 4)
+        out = []
+        for i in range(self.num_coeffs):
+            coeff = alg_from_ring(R, W[self.wire_coeff(i)])
+            acc_i = _alg_wires(W, self.wires_acc(i))
+            out.extend(alg_sub(R, alg_mul_add(R, acc, alpha, coeff), acc_i))
+            acc = acc_i
+        return out
+
+
+class ReducingExtensionGate(Gate):
+    """Running Horner accumulator over extension coefficients (plonky2
+    gates/reducing_extension.rs)."""
+
+    degree = 2
+    num_constants = 0
+    START_COEFFS = 6
+
+    def __init__(self, num_coeffs=32):
+        self.num_coeffs = num_coeffs
+        self.id = f"ReducingExtensionGate {{ num_coeffs: {num_coeffs} }}"
+        self.num_constraints = 2 * num_coeffs
+
+    def wire_coeff(self, i):
+        return self.START_COEFFS + 2 * i
+
+    def start_accs(self):
+        return self.START_COEFFS + 2 * self.num_coeffs
+
+    def wires_acc(self, i):
+        if i == self.num_coeffs - 1:
+            return 0
+        return self.start_accs() + 2 * i
+
+    def num_wires_used(self):
+        return self.start_accs() + 2 * (self.num_coeffs - 1)
+
+    def eval_unfiltered(self, R, C, W, pi):
+        alpha = _alg_wires(W, 2)
+        if isinstance(R, ExtRing):
+            F = R.F
+            prevs, accs = _horner_accs(F, W, self.start_accs(), self.num_coeffs)
+            coeffs = _alg_col(_block(F, W, self.START_COEFFS, self.num_coeffs, 2), 0)
+            tmp = alg_sub(R, alg_mul_add(R, prevs, alpha, coeffs), accs)
+            return _alg_rows(F, tmp)
+        acc = _alg_wires(W, 4)
+        out = []
+        for i in range(self.num_coeffs):
+            coeff = _alg_wires(W, self.wire_coeff(i))
+            acc_i = _alg_wires(W, self.wires_acc(i))
+            out.extend(alg_sub(R, alg_mul_add(R, acc, alpha, coeff), acc_i))
+            acc = acc_i
+        return out
+
+
+class PoseidonMdsGate(Gate):
+    """One width-12 Poseidon MDS multiply over extension-algebra wires
+    (plonky2 gates/poseidon_mds.rs)."""
+
+    degree = 2
+    num_constants = 0
+    id = (
+        "PoseidonMdsGate(PhantomData<plonky2_field::goldilocks_field::"
+        "GoldilocksField>)<WIDTH=12>"
+    )
+    num_constraints = 2 * T
+
+    def wires_input(self, i):
+        return 2 * i
+
+    def wires_output(self, i):
+        return 2 * (T + i)
+
+    def num_wires_used(self):
+        return 4 * T
+
+    def eval_unfiltered(self, R, C, W, pi):
+        if isinstance(R, ExtRing):
+            # the MDS matrix has small entries and acts on each of the four
+            # base components of the stacked state alone: gl64.mds12
+            F = R.F
+            state = _block(F, W, 0, T, 2)
+            outs = _block(F, W, 2 * T, T, 2)
+            res = tuple(F.mds12(c) for c in state)
+            return _rows(F, ext2.sub(F, outs, res))
+        state = [_alg_wires(W, self.wires_input(i)) for i in range(T)]
+        out = []
+        for r in range(T):
+            res = alg_zero(R)
+            for i in range(T):
+                res = alg_small_mul_add(R, MDS_MATRIX_CIRC[i], state[(i + r) % T], res)
+            res = alg_small_mul_add(R, MDS_MATRIX_DIAG[r], state[r], res)
+            out.extend(alg_sub(R, _alg_wires(W, self.wires_output(r)), res))
+        return out
+
+
 class PoseidonGate(Gate):
     """Full width-12 Poseidon permutation, in plonky2's fast-partial-round
     wire layout (plonky2 gates/poseidon.rs). 123 constraints. Evaluated in
-    the lane-stacked form over the extension ring only."""
+    the lane-stacked form over the extension ring, round by round and word
+    by word over the base ring."""
 
     degree = 7
     num_constants = 0
@@ -176,8 +537,7 @@ class PoseidonGate(Gate):
 
     def eval_unfiltered(self, R, C, W, pi):
         if not isinstance(R, ExtRing):
-            raise NotImplementedError(
-                "PoseidonGate is ported over the extension ring only")
+            raise TypeError("PoseidonGate evaluates over the extension ring only")
         return _poseidon_eval_vectorized(self, R, W)
 
 
@@ -195,14 +555,24 @@ def gate_from_id(gate_id: str) -> Gate:
     m = re.match(r"BaseSumGate \{ num_limbs: (\d+) \} \+ Base: 2$", s)
     if m:
         return BaseSumGate(int(m.group(1)))
+    for cls, pattern in (
+            (ArithmeticGate, r"ArithmeticGate \{ num_ops: (\d+) \}$"),
+            (ArithmeticExtensionGate,
+             r"ArithmeticExtensionGate \{ num_ops: (\d+) \}$"),
+            (MulExtensionGate, r"MulExtensionGate \{ num_ops: (\d+) \}$"),
+            (ReducingGate, r"ReducingGate \{ num_coeffs: (\d+) \}$"),
+            (ReducingExtensionGate,
+             r"ReducingExtensionGate \{ num_coeffs: (\d+) \}$"),
+            (RandomAccessGate,
+             r"RandomAccessGate \{ bits: (\d+), num_copies: (\d+), "
+             r"num_extra_constants: (\d+), .*$")):
+        m = re.match(pattern, s)
+        if m:
+            return cls(*(int(g) for g in m.groups()))
     if s.startswith("PoseidonGate"):
         return PoseidonGate()
-    for known in ("ArithmeticGate", "ArithmeticExtensionGate",
-                  "MulExtensionGate", "ReducingGate", "ReducingExtensionGate",
-                  "PoseidonMdsGate", "RandomAccessGate"):
-        if s.startswith(known):
-            raise NotImplementedError(
-                f"gate not ported yet: {gate_id} (ROADMAP.md, queue A)")
+    if s.startswith("PoseidonMdsGate"):
+        return PoseidonMdsGate()
     raise ValueError(f"unknown gate id: {gate_id}")
 
 
@@ -245,6 +615,48 @@ def _se_stack(F, ext_list):
 
 def _se_unstack(F, se):
     return list(zip(F.unstack(se[0]), F.unstack(se[1])))
+
+
+def _block(F, W, start, n, width):
+    """Wires start .. start + n * width as a stacked ext pair of shape
+    [n, width, ...]: row i holds wires start + i * width + (0 .. width-1)."""
+    st = _se_stack(F, W[start : start + n * width])
+    return tuple(c.reshape((n, width) + tuple(c.shape[1:])) for c in st)
+
+
+def _col(se, k):
+    """Column k of a stacked [n, width, ...] ext pair: an ext pair [n, ...]."""
+    return (se[0][:, k], se[1][:, k])
+
+
+def _alg_col(se, k):
+    """Columns k, k + 1 of a stacked [n, width, ...] ext pair as one
+    extension-algebra element with a stacked axis n."""
+    return (_col(se, k), _col(se, k + 1))
+
+
+def _rows(F, se):
+    """A stacked [n, width, ...] ext pair as its n * width rows, row-major."""
+    return _se_unstack(F, tuple(c.flatten(0, 1) for c in se))
+
+
+def _alg_rows(F, alg):
+    """A stacked algebra element (axis n) as the constraint list
+    [a0_0, a1_0, a0_1, a1_1, ...] the per-op loops emit."""
+    return _rows(F, tuple(F.stack([alg[0][k], alg[1][k]], axis=1)
+                          for k in range(2)))
+
+
+def _horner_accs(F, W, start_accs, n):
+    """The reducing gates' accumulators as two stacked algebra elements
+    (axis n): the one each step starts from (the old accumulator, then the
+    intermediate ones) and the one it must reach (the intermediate ones,
+    then the output, which sits in wires 0 and 1)."""
+    mids = _block(F, W, start_accs, n - 1, 2)
+    first, last = _block(F, W, 4, 1, 2), _block(F, W, 0, 1, 2)
+    prevs = tuple(F.concat([a, b], axis=0) for a, b in zip(first, mids))
+    accs = tuple(F.concat([a, b], axis=0) for a, b in zip(mids, last))
+    return _alg_col(prevs, 0), _alg_col(accs, 0)
 
 
 # ------------------------------------------------ vectorized Poseidon eval

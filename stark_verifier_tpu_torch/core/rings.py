@@ -137,3 +137,50 @@ class ExtRing:
 
     def mul_w(self, a):
         return self.small_mul(W, a)
+
+
+# ---------------------------------------------------------------- R-algebra
+# The D=2 extension algebra over R: pairs (a0, a1) of R elements with the
+# same x^2 = 7 twist. The extension gates (ArithmeticExtension, MulExtension,
+# Reducing, ReducingExtension, PoseidonMds) are written over it.
+def alg_zero(R):
+    return (R.zero(), R.zero())
+
+
+def alg_from_ring(R, a):
+    return (a, R.zero())
+
+
+def alg_add(R, a, b):
+    return (R.add(a[0], b[0]), R.add(a[1], b[1]))
+
+
+def alg_sub(R, a, b):
+    return (R.sub(a[0], b[0]), R.sub(a[1], b[1]))
+
+
+def alg_mul(R, a, b):
+    """Karatsuba over R (the identity of ext2.mul): 3 R-muls and a
+    multiply by 7."""
+    t0 = R.mul(a[0], b[0])
+    t1 = R.mul(a[1], b[1])
+    cross = R.mul(R.add(a[0], a[1]), R.add(b[0], b[1]))
+    return (R.add(t0, R.mul_w(t1)), R.sub(cross, R.add(t0, t1)))
+
+
+def alg_mul_add(R, a, b, c):
+    return alg_add(R, alg_mul(R, a, b), c)
+
+
+def alg_scalar_mul(R, s, a):
+    """s in R, a in the algebra."""
+    return (R.mul(s, a[0]), R.mul(s, a[1]))
+
+
+def alg_scalar_mul_add(R, s, a, c):
+    return alg_add(R, alg_scalar_mul(R, s, a), c)
+
+
+def alg_small_mul_add(R, k: int, a, c):
+    """a * k + c with k a small static python int (an MDS entry)."""
+    return (R.add(R.small_mul(k, a[0]), c[0]), R.add(R.small_mul(k, a[1]), c[1]))

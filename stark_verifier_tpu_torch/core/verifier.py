@@ -10,10 +10,13 @@ calls have 1, Q and 4 * Q lanes. The same code carries a batch: with
 `phase_vanishing` and `phase_fri` are `verify` split at the protocol's
 boundaries. All control flow is static in the circuit shape (CommonData).
 
-`permute` overrides the transcript / Merkle / public-input permutation (the
-default follows common.config.hasher and, for the public-input hash, is
-always Goldilocks Poseidon); it exists so that a kernel's path can be held
-against the plain version's on the same device.
+Two permutations, as in plonky2's config: `permute` is the config's Hasher,
+used by the Fiat-Shamir transcript, the leaf hashes and the Merkle walks; it
+defaults to `hashers.get_permute(common.config.hasher, F)` (Goldilocks
+Poseidon, or the BN254 bridge under "bn254"). `inner_permute` is the
+InnerHasher, used by the public-input hash only; it defaults to Goldilocks
+Poseidon under every config. Both exist so that a kernel's path can be held
+against the plain version's, or counted, on the same device.
 """
 from __future__ import annotations
 
@@ -446,13 +449,14 @@ def _quotient_check(F, common, pa, vanishing, zeta_pow_deg):
 
 
 def phase_challenges(F, common: CommonData, circuit_digest, pa: dict,
-                     permute=None, batch=()):
+                     permute=None, batch=(), inner_permute=None):
     """Phase 1: public-input hash + Fiat-Shamir replay. Returns (pi_hash,
     the challenges as a dict of lists and tuples of tensors)."""
     # the public-input hash is plonky2's InnerHasher: Goldilocks Poseidon
-    # under every config
+    # under every config, whatever the transcript's permutation is
     pi_hash = pg.hash_no_pad(F, _scalar_list(F, pa["public_inputs"]),
-                             shape=tuple(batch), permute=permute or pg.permute)
+                             shape=tuple(batch),
+                             permute=inner_permute or pg.permute)
     ch = get_challenges(F, common, pa, pi_hash, circuit_digest,
                         permute=permute, batch=batch)
     return pi_hash, {f: getattr(ch, f) for f in CHALLENGE_FIELDS}
@@ -478,14 +482,15 @@ def phase_fri(F, common: CommonData, vk_cap, pa: dict, ch_tree, ok,
 
 
 def verify(F, common: CommonData, vk_cap, circuit_digest, pa: dict,
-           permute=None, batch=()):
+           permute=None, batch=(), inner_permute=None):
     """Verify one proof (or, with `batch=(B,)`, B proofs stacked along a
     leading axis); returns the accept bit as a bool tensor of shape `batch`.
 
     `pa` values are int64 tensors (see arrays_to_backend); `vk_cap` is a
     [cap, 4] tensor, `circuit_digest` a [4] tensor."""
     pi_hash, ch_tree = phase_challenges(F, common, circuit_digest, pa,
-                                        permute=permute, batch=batch)
+                                        permute=permute, batch=batch,
+                                        inner_permute=inner_permute)
     ok = phase_vanishing(F, common, pa, pi_hash, ch_tree)
     return phase_fri(F, common, vk_cap, pa, ch_tree, ok,
                      permute=permute, batch=batch)
@@ -495,11 +500,13 @@ def arrays_to_backend(F, pa: dict) -> dict:
     return {k: F.from_u64(v) for k, v in pa.items()}
 
 
-def verify_proof(F, common: CommonData, vk, proof: Proof, permute=None):
+def verify_proof(F, common: CommonData, vk, proof: Proof, permute=None,
+                 inner_permute=None):
     """Convenience single-proof entry on F's device."""
     pa = arrays_to_backend(F, proof_to_arrays(proof))
     return verify(F, common, F.from_u64(vk.constants_sigmas_cap),
-                  F.from_u64(vk.circuit_digest), pa, permute=permute)
+                  F.from_u64(vk.circuit_digest), pa, permute=permute,
+                  inner_permute=inner_permute)
 
 
 def proof_to_arrays(proof: Proof) -> dict:

@@ -11,13 +11,13 @@ from .types import CommonData
 
 
 def verify_batched(F, common: CommonData, vk_cap, circuit_digest, pa: dict,
-                   permute=None):
+                   permute=None, inner_permute=None):
     """pa tensors carry a leading batch axis B; returns accept bool [B].
 
-    `permute` overrides the transcript/Merkle/public-input permutation (the
-    default follows common.config.hasher and, for the public-input hash,
-    is always Goldilocks Poseidon); it exists so the kernel's path can be
-    held against the plain version's on the same device."""
+    `permute` overrides the transcript/Merkle permutation (default: the one
+    common.config.hasher names), `inner_permute` the public-input hash's
+    (default: Goldilocks Poseidon under every config); see
+    core/verifier.py."""
     B = pa["public_inputs"].shape[0]
     return V1.verify(F, common, vk_cap, circuit_digest, pa, permute=permute,
-                     batch=(B,))
+                     batch=(B,), inner_permute=inner_permute)

@@ -75,7 +75,8 @@ def _one_by_one(verify_one):
     return fn
 
 
-def make_verifier_fn(common, vk, device="cuda", permute=None):
+def make_verifier_fn(common, vk, device="cuda", permute=None,
+                     inner_permute=None):
     """Per-proof verifier (core/verifier.verify) on `device`, proofs verified
     one by one: where the JAX package maps its single-proof verifier over
     the batch, this loops. Returns (fn, to_device) as
@@ -83,36 +84,44 @@ def make_verifier_fn(common, vk, device="cuda", permute=None):
     4 * Q lanes (Q = number of FRI queries)."""
     F, vk_cap, digest, to_device = _bind(common, vk, device)
     return _one_by_one(
-        lambda pa: V.verify(F, common, vk_cap, digest, pa, permute=permute)
+        lambda pa: V.verify(F, common, vk_cap, digest, pa, permute=permute,
+                            inner_permute=inner_permute)
     ), to_device
 
 
-def make_verifier_fn_phased(common, vk, device="cuda", permute=None):
+def make_verifier_fn_phased(common, vk, device="cuda", permute=None,
+                            inner_permute=None):
     """The per-proof verifier as its three phases (challenges, vanishing
     polynomial, FRI) run in sequence; the challenges cross the phase
     boundaries as a plain dict. Same result as make_verifier_fn."""
     F, vk_cap, digest, to_device = _bind(common, vk, device)
 
     def verify_one(pa):
-        pi_hash, ch = V.phase_challenges(F, common, digest, pa, permute=permute)
+        pi_hash, ch = V.phase_challenges(F, common, digest, pa, permute=permute,
+                                         inner_permute=inner_permute)
         ok = V.phase_vanishing(F, common, pa, pi_hash, ch)
         return V.phase_fri(F, common, vk_cap, pa, ch, ok, permute=permute)
 
     return _one_by_one(verify_one), to_device
 
 
-def make_verifier_fn_batched(common, vk, device="cuda", permute=None):
+def make_verifier_fn_batched(common, vk, device="cuda", permute=None,
+                             inner_permute=None):
     """Batch-in-lanes verifier (core/verifier_batched.py) on `device`.
 
     Returns (fn, to_device): `to_device` maps the u64 numpy dict of
     `batched_arrays` to int64 tensors on the device, `fn` maps those to the
-    accept bits bool[B]. `permute` overrides the Poseidon permutation (see
+    accept bits bool[B]. `permute` overrides the transcript and Merkle
+    permutation, `inner_permute` the public-input hash's (see
     core/verifier.py), e.g. `functools.partial(poseidon_gl.permute, mxu=1)`
-    for a kernel variant; the default launches the Hopper kernel that
-    SVT_POSEIDON_MXU names on a CUDA device."""
+    for a kernel variant. By default the transcript follows the circuit's
+    hash config (Goldilocks Poseidon, or the BN254 bridge under "bn254"),
+    the public-input hash is Goldilocks Poseidon, and on a CUDA device each
+    launches its Hopper kernel (SVT_POSEIDON_MXU names the Poseidon one)."""
     F, vk_cap, digest, to_device = _bind(common, vk, device)
 
     def fn(pa):
-        return VB.verify_batched(F, common, vk_cap, digest, pa, permute=permute)
+        return VB.verify_batched(F, common, vk_cap, digest, pa, permute=permute,
+                                 inner_permute=inner_permute)
 
     return fn, to_device

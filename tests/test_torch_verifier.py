@@ -201,11 +201,14 @@ def test_common_data_json_roundtrip_matches_reference():
 
 
 def test_bn254_hasher_is_refused_by_name():
+    """The hash configs resolve by name: "bn254" to the bridge (ported),
+    an unknown name is refused."""
     from stark_verifier_tpu_torch.ops import hashers
 
     assert hashers.get_permute("poseidon", F) is tpg.permute
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        hashers.get_permute("bn254", F)
+    assert hashers.get_permute("bn254", F) is hashers.bridge_permute
+    with pytest.raises(ValueError, match="unknown hasher"):
+        hashers.get_permute("blake3", F)
 
 
 def test_package_imports_without_jax():

@@ -1,9 +1,13 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch/CUDA port's main path goes, on one GPU.
 
-    python3 tools/torch_profile_main_path.py [--batch 1024] [--reps 3] [--no-trace]
+    python3 tools/torch_profile_main_path.py [--fixture zk20|wrapped] [--batch B]
+                                             [--reps 3] [--no-trace]
 
-Loads fixtures/sem_zk20b64.npz, tiles it to the batch, and on the card
+Loads the fixture (zk20: fixtures/sem_zk20b64.npz, 64 zero-knowledge
+Semaphore proofs, default batch 1024; wrapped: fixtures/sem_wrapped16.npz,
+the bn254-wrapped circuit, default batch 256), tiles it to the batch, and on
+the card
 
   * times the three phases of `verify_batched` apart (host clock around work
     that ends in torch.cuda.synchronize()): transcript (public-input hash +
@@ -12,7 +16,8 @@ Loads fixtures/sem_zk20b64.npz, tiles it to the batch, and on the card
   * traces one whole call with torch.profiler and sums the device time by
     kernel: how many device kernels one batch launches, how long the device
     is busy, its idle share of the (untraced) batch time, and the share of
-    the hand-written Poseidon kernel.
+    the hand-written kernels (the Goldilocks Poseidon kernel and, on the
+    wrapped circuit, the BN254 bridge kernel).
 
 Prints one JSON line per part. Needs a CUDA device; there is no CPU mode.
 """
@@ -35,7 +40,15 @@ from stark_verifier_tpu_torch.core import verifier as V  # noqa: E402
 from stark_verifier_tpu_torch.core.types import load_proofs  # noqa: E402
 from stark_verifier_tpu_torch.models import flagship as FS  # noqa: E402
 from stark_verifier_tpu_torch.ops import gl64  # noqa: E402
+from stark_verifier_tpu_torch.ops import poseidon_bn254_kernel as bk  # noqa: E402
 from stark_verifier_tpu_torch.ops import poseidon_kernel as pk  # noqa: E402
+
+FIXTURES = {"zk20": ("sem_zk20b64.npz", 1024), "wrapped": ("sem_wrapped16.npz", 256)}
+
+
+def launches():
+    """Kernel launches so far, by kernel."""
+    return {**pk.LAUNCHES, **bk.LAUNCHES}
 
 
 def staged(F, common, vk_cap, digest, pa):
@@ -43,7 +56,7 @@ def staged(F, common, vk_cap, digest, pa):
     them; returns (accept bits, seconds by stage, kernel launches by stage)."""
     def tick():
         torch.cuda.synchronize()
-        return time.perf_counter(), sum(pk.LAUNCHES.values())
+        return time.perf_counter(), launches()
 
     batch = (pa["public_inputs"].shape[0],)
     t0 = tick()
@@ -56,13 +69,17 @@ def staged(F, common, vk_cap, digest, pa):
     names = ("transcript", "vanishing", "fri")
     marks = (t0, t1, t2, t3)
     secs = {n: marks[i + 1][0] - marks[i][0] for i, n in enumerate(names)}
-    launches = {n: marks[i + 1][1] - marks[i][1] for i, n in enumerate(names)}
-    return ok, secs, launches
+    counts = {n: {k: c - marks[i][1][k] for k, c in marks[i + 1][1].items()
+                  if c - marks[i][1][k]}
+              for i, n in enumerate(names)}
+    return ok, secs, counts
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--batch", type=int, default=1024)
+    ap.add_argument("--fixture", choices=sorted(FIXTURES), default="zk20")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="default: 1024 for zk20, 256 for wrapped")
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--no-trace", action="store_true",
                     help="skip the torch.profiler pass")
@@ -75,7 +92,9 @@ def main():
         capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi}))
 
-    proofs, common, vk = load_proofs(REPO / "fixtures" / "sem_zk20b64.npz")
+    fixture, default_batch = FIXTURES[args.fixture]
+    args.batch = args.batch or default_batch
+    proofs, common, vk = load_proofs(REPO / "fixtures" / fixture)
     while len(proofs) < args.batch:
         proofs = proofs + proofs
     fn, to_device = FS.make_verifier_fn_batched(common, vk)
@@ -87,13 +106,14 @@ def main():
 
     runs = []
     for _ in range(args.reps):
-        ok, secs, launches = staged(F, common, vk_cap, digest, pa)
+        ok, secs, counts = staged(F, common, vk_cap, digest, pa)
         assert bool(ok.all())
         runs.append(secs)
     med = {k: float(np.median([r[k] for r in runs])) * 1e3 for k in runs[0]}
-    print(json.dumps({"part": "stages", "batch": args.batch, "reps": args.reps,
-                      "ms_median": med, "ms_total": sum(med.values()),
-                      "poseidon_permute_launches": launches}))
+    print(json.dumps({"part": "stages", "fixture": fixture, "batch": args.batch,
+                      "reps": args.reps, "ms_median": med,
+                      "ms_total": sum(med.values()),
+                      "kernel_launches_by_stage": counts}))
 
     if args.no_trace:
         return
@@ -118,9 +138,11 @@ def main():
                           "why": "the profiler reported no device kernel"}))
         return
     poseidon = [d for d in dev if "poseidon_permute" in d[0]]
+    bridge = [d for d in dev if "bridge_permute12" in d[0]]
     top = sorted(dev, key=lambda d: -d[2])[:8]
     print(json.dumps({
-        "part": "trace", "batch": args.batch, "wall_ms_traced": wall_ms,
+        "part": "trace", "fixture": fixture, "batch": args.batch,
+        "wall_ms_traced": wall_ms,
         "device_kernels": sum(c for _, c, _ in dev),
         "device_busy_ms": busy_ms,
         # the trace slows the host down many times over, so the idle share
@@ -129,6 +151,8 @@ def main():
         "device_idle_share": 1 - busy_ms / sum(med.values()),
         "poseidon_permute_ms": sum(t for _, _, t in poseidon) / 1e3,
         "poseidon_permute_count": sum(c for _, c, _ in poseidon),
+        "bridge_permute12_ms": sum(t for _, _, t in bridge) / 1e3,
+        "bridge_permute12_count": sum(c for _, c, _ in bridge),
         "top_kernels_ms": [[k[:60], c, t / 1e3] for k, c, t in top]}))
 
 
