@@ -7,7 +7,8 @@ needs one CUDA card (built for Hopper, sm_90a), `nvcc`, and no network. It
 
   1. names the device;
   2. builds every hand-written kernel from the sources in this checkout
-     (one nvcc a source, all started together);
+     (one nvcc a source, all started together) and prints, one line a
+     kernel, the registers and spill bytes ptxas reported for it;
   3. holds each kernel against its plain PyTorch version on the card, at the
      lane counts the paths give it and, for the two rate probes, on the
      card-filling tensors they are timed on (exact equality: this is modular
@@ -100,8 +101,9 @@ INT32_INSTR_PER_PERMUTATION = 472 * 20 + 360 * 9 + 30 * 410
 BYTES_PER_PERMUTATION = 2 * 12 * 8
 
 # The same count for the BN254 bridge permutation, one lane: the least that
-# the function needs, not what csrc/poseidon_bn254.cu executes (that kernel
-# reduces every product and subtracts after every add). Units:
+# the function needs, in the sparse form csrc/poseidon_bn254.cu computes
+# (the same function with fewer products; the dense form's count was
+# 353,892), not what the kernel executes. Units:
 #   w, a 64x64->128 word product accumulated into a running multiword sum:
 #     4 wide 32x32 multiply-adds and 4 carry adds -> 8;
 #   product of two Fr elements of four words, unreduced: 16 w -> 128;
@@ -112,11 +114,17 @@ BYTES_PER_PERMUTATION = 2 * 12 * 8
 #     product fits four words -> 156;
 #   add, lazy (no subtraction): four 64-bit adds with carry -> 8.
 # Per permutation:
-#   MDS, 68 layers: 25 products, each row's five summed in one running sum,
-#     and 5 reductions -> 1,700 products, 340 reductions;
+#   MDS, 8 full rounds: 25 products each, each row's five summed in one
+#     running sum and reduced once -> 200 products, 40 reductions;
+#   MDS, 60 sparse partial rounds: lane 0 a row of 5 products, lanes 1..4
+#     one product each, added to the lane -> 540 products, 60 + 240
+#     reductions, 240 adds;
+#   the last P, once: 4 rows of 4 products -> 16 products, 4 reductions;
+#     so 756 products (dense: 1,700) and 344 reductions (dense: 340);
 #   s-boxes x^5, 5 in each of 8 full rounds and 1 in each of 60 partial:
 #     100 of 2 squares and 1 product, 300 reductions;
-#   round constants: 5 adds in each of 68 rounds -> 340 adds;
+#   round constants, carried forward: 5 adds in each of 8 full rounds and 1
+#     in each of 60 partial rounds -> 100 adds (dense: 340);
 #   into Montgomery form: 4 products of a packed three-word value by R^2
 #     (12 w) and 4 reductions; out of it: 4 reductions;
 #   packing, from the code: for each of 4 elements 3 Goldilocks
@@ -128,8 +136,8 @@ BYTES_PER_PERMUTATION = 2 * 12 * 8
 #     products with 1/p: 4 word products with two adds (12) and 5 that keep
 #     only the low word (a low product, 3, and two 64-bit adds, 4) -> 732.
 BRIDGE_INT32_INSTR_PER_PERMUTATION = (
-    1700 * 128 + 100 * (2 * 92 + 128) + 4 * 12 * 8
-    + (340 + 300 + 4 + 4) * 156 + 340 * 8 + 168 + 732)
+    756 * 128 + 100 * (2 * 92 + 128) + 4 * 12 * 8
+    + (344 + 300 + 4 + 4) * 156 + (240 + 100) * 8 + 168 + 732)
 
 KERNEL_FILES = {
     "poseidon_permute": ("stark_verifier_tpu_torch/ops/csrc/poseidon_gl.cu",
@@ -218,12 +226,22 @@ def phase_build():
     probes._library()
     bk._library()
     seconds = time.time() - t0
-    ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]
-             for name, log in logs.items()}
     emit({"phase": "build", "sources": sorted(cuda_build.SOURCES.values()),
           "nvcc": cuda_build.nvcc_path(), "flags": cuda_build.NVCC_FLAGS,
-          "seconds": round(seconds, 2), "ptxas": ptxas})
+          "source_flags": cuda_build.SOURCE_FLAGS,
+          "seconds": round(seconds, 2), "built": sorted(n for n, log in logs.items() if log)})
+    # one line per kernel: registers and spills of each of its entry points,
+    # as ptxas reported them when the library was built
+    for name, (source, _) in KERNEL_FILES.items():
+        functions = cuda_build.ptxas_report(Path(source).stem).get(f"{name}_kernel")
+        check(bool(functions) and all("registers" in f and "spill_stores" in f
+                                      for f in functions),
+              f"no ptxas report for {name}")
+        emit({"phase": "ptxas", "kernel": name, "source": source,
+              "max_registers": max(f["registers"] for f in functions),
+              "spill_stores": max(f["spill_stores"] for f in functions),
+              "spill_loads": max(f["spill_loads"] for f in functions),
+              "functions": functions})
 
 
 def kernel_row(name, ms, plain_ms, t_bytes, t_ops, library_ms=None,

@@ -8,11 +8,14 @@
 // (body `mxu_kernel`: an f32 [12, 12] @ [12, 8192] product chained 30 times,
 // one per Poseidon round, a matrix-unit probe) -> mma_probe.
 //
-// What bounds them: operations, by design. alu_probe reads and writes one
-// word an element and does `chain` (x `ilp`) steps on it in registers;
-// mma_probe keeps its tile in shared memory for all 30 products. The TPU
-// shapes would fill 4 of this card's 132 SMs, so the caller sizes the input
-// to fill the card instead (at least 132 x 2048 threads).
+// What bounds them: alu_probe, operations, by design: it reads and writes one
+// word an element and does `chain` (x `ilp`) steps on it in registers.
+// mma_probe, bytes at the card's rates (30 products of 12 x 12 bytes a
+// column are 8,640 int8 operations for 24 bytes moved): its tile stays in
+// registers for all 30 products, and the loads and stores move 16 bytes a
+// thread through a small per-warp stage in shared memory, once a tile. The
+// TPU shapes would fill 4 of this card's 132 SMs, so the caller sizes the
+// input to fill the card instead (at least 132 x 2048 threads).
 //
 // alu_probe. A compiler folds `y += x` 512 times into y + 512 * x and
 // strength-reduces the rest, so every step is one `asm volatile` of the
@@ -27,12 +30,10 @@
 // random floats; this one is integer-valued because it times the product the
 // Poseidon kernel runs, whose operands are 8-bit limbs: kind 0 through
 // mma.sync m16n8k16 s32.u8.u8.s32 (the shape poseidon_gl_mma.cu uses), kind 1
-// through the TF32 mma m16n8k8 (two of them cover the 12 rows of y, padded to
-// 16). The mod 256 keeps both exact: values < 256 fit TF32's 11-bit
-// significand, entries of M are < 64, so sums are < 12 * 63 * 255 < 2^18.
-// Between two products D's fragment layout (rows t/4, t/4 + 8; columns
-// 2(t%4), +1) has to become B's (rows 4(t%4).. + 3; column t/4): through the
-// warp's shared memory, as in the Poseidon kernel.
+// through the TF32 mma m16n8k8. The mod 256 keeps both exact: values < 256
+// fit TF32's 11-bit significand, entries of M are < 64, so sums are
+// < 12 * 63 * 255 < 2^18. Between two products the result stays in
+// registers (the fragment plan is described above mma_probe_kernel).
 //
 // Plain C interface (loaded with ctypes): no PyTorch headers, launches on
 // the stream it is given, allocates nothing, returns cudaGetLastError().
@@ -170,15 +171,33 @@ static int launch_alu(int ilp, const void* x, void* out, long long n, int chain,
 }
 
 // ------------------------------------------------------------- mma_probe
+// The product is taken transposed: y'^T = y^T M^T, with y^T as the A operand
+// (16 columns of y a tile are A's 16 rows m; y's rows are A's depth k) and
+// M^T as B (two n8 tiles cover y''s rows 0..7 and 8..15; rows 12..15 are
+// zero padding). Depth slot k of A carries y's row K_ROW(k), chosen so that
+// what a thread holds of D (rows m = t/4 and t/4 + 8, n = 2(t%4), +1 of each
+// n tile) is exactly what it needs of the next A: the D -> A step is local
+// to the thread, with no shuffle and no shared memory. M^T's rows are
+// permuted the same way, so the product is unchanged.
+//   u8, m16n8k16: A slot (m, 4(t%4) + i) <- y row {2q, 2q+1, 2q+8, 2q+9}[i]
+//     (q = t%4); the next a0 = low bytes of D0.d0, D0.d1, D1.d0, D1.d1,
+//     a1 = those of D0.d2, D0.d3, D1.d2, D1.d3.
+//   tf32, m16n8k8 twice along k: slot q of k tile h <- y row 8h + 2q, slot
+//     q + 4 <- 8h + 2q + 1; the next A of k tile h is D_h's d0, d2, d1, d3,
+//     each taken mod 256 in float (exact: values below 2^18).
+// tests/test_torch_probes.py restates this plan in Python and emulates the
+// 30 products through it, lane by lane, against mma_plain.
 #define MMA_BLOCK_COLS 8192
 #define MMA_THREADS 256                       // 8 warps, 1024 columns each
 #define MMA_WARP_COLS (MMA_BLOCK_COLS / (MMA_THREADS / 32))
-#define GROUP_TILES 8                         // 8 tiles of 8 columns in flight a warp
-#define GROUP_COLS (8 * GROUP_TILES)
-#define TILE_BYTES 128                        // [column 0..7][row 0..15]
+// tiles of 16 columns in flight a warp: 8 for u8, 4 for tf32 (whose eight
+// fragment registers a tile would spill at 8 under the register cap)
+#define MAX_GROUP_COLS (16 * 8)
+#define STAGE_BYTES (12 * MAX_GROUP_COLS)     // a group's 12 rows, row-major
 
+// not volatile: the products are pure, so the compiler may interleave them
 __device__ __forceinline__ void mma_u8(int (&d)[4], u32 a0, u32 a1, u32 b) {
-    asm volatile(
+    asm(
         "mma.sync.aligned.m16n8k16.row.col.s32.u8.u8.s32 "
         "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%7, %7, %7, %7};"
         : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
@@ -187,7 +206,7 @@ __device__ __forceinline__ void mma_u8(int (&d)[4], u32 a0, u32 a1, u32 b) {
 
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const u32 (&a)[4],
                                          u32 b0, u32 b1, const float (&c)[4]) {
-    asm volatile(
+    asm(
         "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
         "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};"
         : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
@@ -195,102 +214,163 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const u32 (&a)[4],
           "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
 }
 
+// y's row carried by depth slot i (0..3) of thread column q, u8 kind
+__device__ __forceinline__ int k_row_u8(int q, int i) {
+    return 2 * q + (i & 1) + 8 * (i >> 1);
+}
+
 __device__ __forceinline__ u32 m_entry(const u8* M, int row, int col) {
     return (row < 12 && col < 12) ? (u32)M[row * 12 + col] : 0u;
 }
 
-// KIND 0: u8 mma; KIND 1: tf32 mma. y, out: u8[12, N], N % 8192 == 0; M: u8[12, 12].
+template <int GROUP_COLS>
+__device__ __forceinline__ u32 stage_byte(const u8* stage, int row, int col) {
+    return row < 12 ? (u32)stage[row * GROUP_COLS + col] : 0u;
+}
+
+// the low bytes of four words, x0 lowest
+__device__ __forceinline__ u32 low_bytes(int x0, int x1, int x2, int x3) {
+    u32 lo = __byte_perm((u32)x0, (u32)x1, 0x0040);
+    u32 hi = __byte_perm((u32)x2, (u32)x3, 0x0040);
+    return __byte_perm(lo, hi, 0x5410);
+}
+
+__device__ __forceinline__ float mod256(float v) {
+    return fmaf(-256.0f, floorf(v * (1.0f / 256.0f)), v);
+}
+
+// KIND 0: u8 mma; KIND 1: tf32 mma. y, out: u8[12, N], N % 8192 == 0, both
+// 16-byte aligned; M: u8[12, 12].
 template <int KIND>
-__global__ void __launch_bounds__(MMA_THREADS)
+__global__ void __launch_bounds__(MMA_THREADS, 4)
 mma_probe_kernel(const u8* __restrict__ y, const u8* __restrict__ M,
                  u8* __restrict__ out, long long N, int steps) {
-    __shared__ __align__(16) u8 smem[(MMA_THREADS / 32) * GROUP_TILES * TILE_BYTES];
+    constexpr int GROUP_TILES = KIND == 0 ? 8 : 4;
+    constexpr int GROUP_COLS = 16 * GROUP_TILES;
+    __shared__ __align__(16) u8 smem[(MMA_THREADS / 32) * STAGE_BYTES];
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const int grp = lane >> 2, q = lane & 3;
-    u8* tiles = smem + warp * GROUP_TILES * TILE_BYTES;
+    u8* stage = smem + warp * STAGE_BYTES;
 
-    // the matrix as this thread's A fragments; rows and columns 12..15 are zero
-    u32 a_u8[2] = {0u, 0u};
-    u32 a_tf[2][4];
-    if (KIND == 0) {
+    // B = M^T with its depth permuted as A's, for n tiles j = 0, 1
+    u32 b_u8[2] = {0u, 0u};
+    u32 b_tf[2][2][2];                        // [k tile h][n tile j][b0, b1]
 #pragma unroll
-        for (int b = 0; b < 4; ++b) {
-            a_u8[0] |= m_entry(M, grp, 4 * q + b) << (8 * b);
-            a_u8[1] |= m_entry(M, grp + 8, 4 * q + b) << (8 * b);
-        }
-    } else {
+    for (int j = 0; j < 2; ++j) {
+        if (KIND == 0) {
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-            a_tf[h][0] = __float_as_uint((float)m_entry(M, grp, 8 * h + q));
-            a_tf[h][1] = __float_as_uint((float)m_entry(M, grp + 8, 8 * h + q));
-            a_tf[h][2] = __float_as_uint((float)m_entry(M, grp, 8 * h + q + 4));
-            a_tf[h][3] = __float_as_uint((float)m_entry(M, grp + 8, 8 * h + q + 4));
+            for (int i = 0; i < 4; ++i)
+                b_u8[j] |= m_entry(M, 8 * j + grp, k_row_u8(q, i)) << (8 * i);
+        } else {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                b_tf[h][j][0] = __float_as_uint((float)m_entry(M, 8 * j + grp, 8 * h + 2 * q));
+                b_tf[h][j][1] = __float_as_uint((float)m_entry(M, 8 * j + grp, 8 * h + 2 * q + 1));
+            }
         }
     }
-
-    // rows 12..15 of every tile stay zero for the whole kernel
-    for (int i = lane; i < GROUP_TILES * TILE_BYTES / 4; i += 32)
-        reinterpret_cast<u32*>(tiles)[i] = 0u;
-    __syncwarp();
 
     const long long warp_base =
         (long long)blockIdx.x * MMA_BLOCK_COLS + (long long)warp * MMA_WARP_COLS;
     for (int group = 0; group < MMA_WARP_COLS / GROUP_COLS; ++group) {
         const long long base = warp_base + (long long)group * GROUP_COLS;
-        // load 12 rows of 64 columns, two columns a thread, coalesced over the warp
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-            int c = lane + 32 * half;
-#pragma unroll
-            for (int r = 0; r < 12; ++r)
-                tiles[(c >> 3) * TILE_BYTES + (c & 7) * 16 + r] = y[r * N + base + c];
+        // 12 rows x 64 columns in, 16 bytes a thread, into the warp's stage
+        for (int v = lane; v < 12 * GROUP_COLS / 16; v += 32) {
+            int row = v / (GROUP_COLS / 16), chunk = v % (GROUP_COLS / 16);
+            *reinterpret_cast<uint4*>(stage + row * GROUP_COLS + 16 * chunk) =
+                *reinterpret_cast<const uint4*>(y + row * N + base + 16 * chunk);
         }
         __syncwarp();
+        u32 a_u8[GROUP_TILES][2];
+        u32 a_tf[GROUP_TILES][2][4];
+#pragma unroll
+        for (int t = 0; t < GROUP_TILES; ++t) {
+            const int c = 16 * t + grp;
+            if (KIND == 0) {
+#pragma unroll
+                for (int r = 0; r < 2; ++r) {
+                    a_u8[t][r] = 0u;
+#pragma unroll
+                    for (int i = 0; i < 4; ++i)
+                        a_u8[t][r] |= stage_byte<GROUP_COLS>(stage, k_row_u8(q, i), c + 8 * r) << (8 * i);
+                }
+            } else {
+#pragma unroll
+                for (int h = 0; h < 2; ++h)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e)
+                        a_tf[t][h][e] = __float_as_uint((float)stage_byte<GROUP_COLS>(
+                            stage, 8 * h + 2 * q + (e >> 1), c + 8 * (e & 1)));
+            }
+        }
 #pragma unroll 1
         for (int s = 0; s < steps; ++s) {
-            int d[GROUP_TILES][4];
+            if (KIND == 0) {
+                // every tile's two products first, then the packing
+                int d[GROUP_TILES][2][4];
+#pragma unroll
+                for (int t = 0; t < GROUP_TILES; ++t)
+#pragma unroll
+                    for (int j = 0; j < 2; ++j)
+                        mma_u8(d[t][j], a_u8[t][0], a_u8[t][1], b_u8[j]);
+#pragma unroll
+                for (int t = 0; t < GROUP_TILES; ++t) {
+                    a_u8[t][0] = low_bytes(d[t][0][0], d[t][0][1], d[t][1][0], d[t][1][1]);
+                    a_u8[t][1] = low_bytes(d[t][0][2], d[t][0][3], d[t][1][2], d[t][1][3]);
+                }
+                continue;
+            }
+            const float zero[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
             for (int t = 0; t < GROUP_TILES; ++t) {
-                const u8* col = tiles + t * TILE_BYTES + grp * 16;
-                if (KIND == 0) {
-                    mma_u8(d[t], a_u8[0], a_u8[1],
-                           *reinterpret_cast<const u32*>(col + 4 * q));
-                } else {
-                    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+                float d[2][4];
 #pragma unroll
-                    for (int h = 0; h < 2; ++h) {
-                        u32 b0 = __float_as_uint((float)col[8 * h + q]);
-                        u32 b1 = __float_as_uint((float)col[8 * h + q + 4]);
-                        float next[4];
-                        mma_tf32(next, a_tf[h], b0, b1, acc);
+                for (int j = 0; j < 2; ++j) {
+                    float part[4];
+                    mma_tf32(part, a_tf[t][0], b_tf[0][j][0], b_tf[0][j][1], zero);
+                    mma_tf32(d[j], a_tf[t][1], b_tf[1][j][0], b_tf[1][j][1], part);
+                }
 #pragma unroll
-                        for (int e = 0; e < 4; ++e) acc[e] = next[e];
-                    }
-#pragma unroll
-                    for (int e = 0; e < 4; ++e) d[t][e] = (int)acc[e];
+                for (int j = 0; j < 2; ++j) {
+                    a_tf[t][j][0] = __float_as_uint(mod256(d[j][0]));
+                    a_tf[t][j][1] = __float_as_uint(mod256(d[j][2]));
+                    a_tf[t][j][2] = __float_as_uint(mod256(d[j][1]));
+                    a_tf[t][j][3] = __float_as_uint(mod256(d[j][3]));
                 }
             }
-            __syncwarp();   // every fragment is loaded before a tile is overwritten
-#pragma unroll
-            for (int t = 0; t < GROUP_TILES; ++t) {
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    int row = grp + 8 * (e >> 1);
-                    if (row < 12)
-                        tiles[t * TILE_BYTES + (2 * q + (e & 1)) * 16 + row] =
-                            (u8)(d[t][e] & 0xFF);
-                }
-            }
-            __syncwarp();
         }
+        __syncwarp();   // every thread has read the stage before it is rewritten
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-            int c = lane + 32 * half;
+        for (int t = 0; t < GROUP_TILES; ++t) {
+            const int c = 16 * t + grp;
+            if (KIND == 0) {
 #pragma unroll
-            for (int r = 0; r < 12; ++r)
-                out[r * N + base + c] = tiles[(c >> 3) * TILE_BYTES + (c & 7) * 16 + r];
+                for (int r = 0; r < 2; ++r)
+#pragma unroll
+                    for (int i = 0; i < 4; ++i) {
+                        int row = k_row_u8(q, i);
+                        if (row < 12)
+                            stage[row * GROUP_COLS + c + 8 * r] = (u8)(a_u8[t][r] >> (8 * i));
+                    }
+            } else {
+#pragma unroll
+                for (int h = 0; h < 2; ++h)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        int row = 8 * h + 2 * q + (e >> 1);
+                        if (row < 12)
+                            stage[row * GROUP_COLS + c + 8 * (e & 1)] =
+                                (u8)(int)__uint_as_float(a_tf[t][h][e]);
+                    }
+            }
         }
         __syncwarp();
+        for (int v = lane; v < 12 * GROUP_COLS / 16; v += 32) {
+            int row = v / (GROUP_COLS / 16), chunk = v % (GROUP_COLS / 16);
+            *reinterpret_cast<uint4*>(out + row * N + base + 16 * chunk) =
+                *reinterpret_cast<const uint4*>(stage + row * GROUP_COLS + 16 * chunk);
+        }
+        __syncwarp();   // the stores have read the stage before the next group
     }
 }
 
@@ -316,7 +396,8 @@ int alu_probe(int op, int ilp, const void* x, void* out, long long n, int chain,
     return (int)cudaErrorInvalidValue;
 }
 
-// y, out: device pointers to u8[12, N], N a positive multiple of 8192;
+// y, out: device pointers to u8[12, N], N a positive multiple of 8192, both
+// 16-byte aligned;
 // M: device pointer to u8[12, 12]; kind 0 = u8 mma, 1 = tf32 mma.
 int mma_probe(int kind, const void* y, const void* M, void* out, long long N,
               int steps, void* stream) {

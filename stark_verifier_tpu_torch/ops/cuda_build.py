@@ -4,12 +4,14 @@ Each source under `ops/csrc/` has a plain C interface and includes no
 PyTorch header, so a build takes seconds. The shared libraries go into
 `build/` at the repository root (git-ignored), named after a hash of the
 source and of the headers it includes from `csrc/`, so an edited source or
-header is never served by a stale library. Everything
+header is never served by a stale library; the compiler's output (with
+`-Xptxas -v`, each kernel's registers and spills) is kept beside it. Everything
 happens at first use, never at import: a machine without `nvcc` can import
 the package and run it on CPU tensors.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/lib<name>_<hash>.so ops/csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v [SOURCE_FLAGS] \
+         -o build/lib<name>_<hash>.so ops/csrc/<name>.cu
 """
 from __future__ import annotations
 
@@ -33,6 +35,11 @@ SOURCES = {"poseidon_gl": "poseidon_gl.cu",
 # -Xptxas -v makes the compiler report each kernel's registers and spills
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# flags of one source, after NVCC_FLAGS. The bridge: at its default level
+# ptxas schedules independent products side by side and spills at the
+# 128-register cap; at -O1 it keeps their order and spills nothing, for a
+# few per cent of time (csrc/poseidon_bn254.cu says more).
+SOURCE_FLAGS = {"poseidon_bn254": ["-Xptxas", "-O1"]}
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -66,8 +73,12 @@ def _with_headers(path: Path, seen=None) -> bytes:
 
 def _target(name: str) -> Path:
     src = _with_headers(CSRC / SOURCES[name])
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    tag = hashlib.sha1(src + " ".join(_flags(name)).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}_{tag}.so"
+
+
+def _flags(name: str) -> list:
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, [])
 
 
 def _start(name: str):
@@ -75,7 +86,7 @@ def _start(name: str):
     target = _target(name)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+    cmd = [nvcc_path(), *_flags(name), "-o", str(tmp),
            str(CSRC / SOURCES[name])]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
@@ -96,8 +107,37 @@ def build_all(names=None) -> dict[str, str]:
             raise RuntimeError(
                 f"nvcc failed for {SOURCES[n]} (exit {proc.returncode}):\n"
                 f"{' '.join(cmd)}\n{out}")
+        target.with_suffix(".log").write_text(out)
         os.replace(tmp, target)  # atomic: a reader never sees half a file
     return logs
+
+
+def ptxas_report(name: str) -> dict:
+    """Registers and spill bytes of every kernel in the library `name`, by
+    the kernel's identifier (template arguments kept in the mangled name's
+    tail), from the `-Xptxas -v` output saved beside the library when it
+    was built: {identifier: [{"function", "registers", "spill_stores",
+    "spill_loads"}, ...]}."""
+    log = _target(name).with_suffix(".log").read_text()
+    report, current = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            current = {"function": m.group(1)}
+            ident = re.match(r"_Z(\d+)", current["function"])
+            key = (current["function"][len(ident.group(0)):][:int(ident.group(1))]
+                   if ident else current["function"])
+            report.setdefault(key, []).append(current)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and current is not None:
+            current["spill_stores"], current["spill_loads"] = map(int, m.groups())
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current is not None:
+            current["registers"] = int(m.group(1))
+            current = None
+    return report
 
 
 def load(name: str) -> ctypes.CDLL:

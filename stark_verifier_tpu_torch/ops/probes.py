@@ -234,6 +234,8 @@ def mma_probe(y: torch.Tensor, M: torch.Tensor, kind: str = "u8",
         raise RuntimeError(f"mma_probe: no kernel for device {y.device}")
     if not (y.is_contiguous() and M.is_contiguous()):
         raise ValueError("mma_probe: y and M must be contiguous")
+    if y.data_ptr() % 16:
+        raise ValueError("mma_probe: y must be 16-byte aligned (16-byte loads)")
     lib = _library()
     out = torch.empty_like(y)
     _launch("mma_probe", y, lambda stream: lib.mma_probe(

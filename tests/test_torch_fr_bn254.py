@@ -43,31 +43,59 @@ def test_constant_table_is_the_jax_packages():
 
 
 def test_kernel_header_constants():
-    """The modulus, -q^-1 mod 2^64 and R^2 mod q compiled into the kernel,
+    """The modulus and R^2 mod q compiled into the kernel as 28-bit limbs
+    (R = 2^280), the digit rule -q^-1 = -1 mod 2^28 its reduction relies on,
     and p^-1 mod 2^192 of its unpacking, are the right numbers."""
     text = (CSRC / "fr_bn254.cuh").read_text() + (CSRC / "poseidon_bn254.cu").read_text()
-    defs = dict(re.findall(r"#define (FR_\w+) (0x[0-9a-f]+)ull", text))
+    defs = dict(re.findall(r"#define (FR_\w+) (0x[0-9a-fA-F]+)u\b", text))
+    bits = int(re.search(r"#define FR_LB (\d+)", text).group(1))
+    n = int(re.search(r"#define FR_NL (\d+)", text).group(1))
+    assert (bits, n) == (bk.LIMB_BITS, bk.N_LIMBS)
 
-    def words(prefix):
-        return sum(int(defs[f"{prefix}{k}"], 16) << (64 * k) for k in range(4))
+    def limbs(prefix):
+        assert all(int(defs[f"{prefix}{k}"], 16) < 1 << bits for k in range(n))
+        return sum(int(defs[f"{prefix}{k}"], 16) << (bits * k) for k in range(n))
 
-    assert words("FR_Q") == Q
-    assert words("FR_R2_") == pow(2, 512, Q)
-    assert int(defs["FR_QINV"], 16) == (-pow(Q, -1, 1 << 64)) % (1 << 64)
+    assert limbs("FR_Q_L") == Q
+    assert limbs("FR_R2_L") == pow(2, 2 * bits * n, Q)
+    assert int(defs["FR_LMASK"], 16) == (1 << bits) - 1
+    assert (-pow(Q, -1, 1 << bits)) % (1 << bits) == (1 << bits) - 1   # m = -t mod 2^28
     pinv = re.search(r"PINV\[3\] = \{(0x[0-9a-f]+)ull, (0x[0-9a-f]+)ull,\s*(0x[0-9a-f]+)ull",
                      text).groups()
     assert sum(int(w, 16) << (64 * k) for k, w in enumerate(pinv)) == pow(P, -1, 1 << 192)
 
 
 def test_kernel_constant_tables():
-    rc, mds = bk.constant_tables()
-    assert rc.dtype == mds.dtype == np.uint64
-    assert rc.shape == ((tconst.R_F + tconst.R_P) * tconst.T * 4,)
-    assert mds.shape == (tconst.T * tconst.T * 4,)
-    for table, src in ((rc, tconst.ROUND_CONSTANTS), (mds, tconst.MDS_MATRIX)):
-        w = table.reshape(-1, 4)
-        for k in (0, 1, len(src) - 1):
-            assert sum(int(x) << (64 * i) for i, x in enumerate(w[k])) == src[k] * 2**256 % Q
+    """The two uploads hold the schedule's tables in Montgomery form (R =
+    2^280, ten 28-bit limbs an element): the full rounds' constants (the
+    dense ones, but for the first round after the partial rounds, which
+    takes the carried constants), the partial rounds' lane-0 constants (the
+    first is the dense one: nothing is carried into it yet), the dense MDS,
+    the sparse rows and the last P."""
+    rc, mat = bk.constant_tables()
+    assert rc.dtype == mat.dtype == np.uint32
+    t = tconst.T
+    assert rc.shape == ((tconst.R_F * t + tconst.R_P) * 10,)
+    assert mat.shape == ((t * t + tconst.R_P * 9 + (t - 1) ** 2) * 10,)
+
+    def value(table, k):
+        return sum(int(x) << (28 * i) for i, x in enumerate(table.reshape(-1, 10)[k]))
+
+    mont = lambda v: v * 2**280 % Q
+    half = tconst.R_F // 2
+    rounds = tconst.R_F + tconst.R_P
+    for k in (0, 1, half * t - 1):
+        assert value(rc, k) == mont(tconst.ROUND_CONSTANTS[k])
+    for k in ((half + 1) * t, tconst.R_F * t - 1):     # after the carried round
+        assert value(rc, k) == mont(tconst.ROUND_CONSTANTS[(k // t + tconst.R_P) * t + k % t])
+    assert value(rc, tconst.R_F * t) == mont(tconst.ROUND_CONSTANTS[half * t])
+    for k in (0, 7, t * t - 1):
+        assert value(mat, k) == mont(tconst.MDS_MATRIX[k])
+    tables = bk.schedule_tables()
+    assert value(mat, t * t) == mont(tables["sparse"][0][0])
+    assert value(mat, t * t + 9 * tconst.R_P - 1) == mont(tables["sparse"][-1][-1])
+    assert value(mat, t * t + 9 * tconst.R_P) == mont(tables["p_last"][0][0])
+    assert rounds == len(tconst.ROUND_CONSTANTS) // t
 
 
 @pytest.mark.parametrize("seed", [0, 1])

@@ -170,3 +170,104 @@ def test_mma_wrapper_rejects_what_the_kernel_does_not_take(bad):
     else:
         with pytest.raises(ValueError, match="multiple"):
             probes.mma_probe(y[:, :100], M)
+
+
+# The kernel's fragment plan (csrc/probes.cu, above mma_probe_kernel),
+# restated in Python.
+def _k_rows(kind):
+    """The row of y that depth slot k (0..15) of mma_probe's A operand
+    carries (csrc/probes.cu takes the product transposed, y^T M^T, with y^T
+    as A): the permutation the kernel applies to A's depth and B's alike. u8: slot
+    4q + i carries row 2q + (i & 1) + 8 (i >> 1); tf32: slot 8h + q carries
+    8h + 2q and slot 8h + q + 4 carries 8h + 2q + 1. Rows 12..15 are zero."""
+    if kind == "u8":
+        return [2 * (k // 4) + (k % 4 & 1) + 8 * (k % 4 >> 1) for k in range(16)]
+    return [8 * (k // 8) + 2 * (k % 4) + (k % 8) // 4 for k in range(16)]
+
+
+def _fragment_plan(kind):
+    """Where the kernel takes each slot of a thread's next A fragment from:
+    plan[t][slot] = (source thread, n tile, D element). Slots: u8, register
+    r (0, 1) byte i -> 4r + i; tf32, k tile h register e -> 4h + e. The
+    source is always the thread itself: with the depth order of _k_rows,
+    the D -> A step needs no shuffle."""
+    plan = []
+    for t in range(32):
+        if kind == "u8":
+            plan.append([(t, i >> 1, 2 * r + (i & 1)) for r in range(2) for i in range(4)])
+        else:
+            plan.append([(t, h, 2 * (e & 1) + (e >> 1)) for h in range(2) for e in range(4)])
+    return plan
+
+
+# PTX's fragment layouts (PTX ISA, "Matrix Fragments for mma.m16n8k16" with
+# .u8 and "... mma.m16n8k8" with .tf32), thread t, group g = t // 4, q = t % 4
+def _ptx_a(kind, t, slot):
+    """(m, k) of A held by thread t in a slot of _fragment_plan's order."""
+    g, q = divmod(t, 4)
+    if kind == "u8":                      # register r, byte i
+        r, i = divmod(slot, 4)
+        return g + 8 * r, 4 * q + i
+    h, e = divmod(slot, 4)                # k tile h, register e
+    return g + 8 * (e & 1), 8 * h + q + 4 * (e >> 1)
+
+
+def _ptx_d(t, e):
+    """(m, n) of D (one n8 tile) held by thread t in register e."""
+    g, q = divmod(t, 4)
+    return g + 8 * (e >> 1), 2 * q + (e & 1)
+
+
+def _emulate_mma_probe(kind, y, M, steps):
+    """The kernel's data flow for one 16-column tile, thread by thread: A
+    fragments loaded by _k_rows, the tensor core's product through PTX's
+    layouts, the next A taken by _fragment_plan (mod 256)."""
+    krow = _k_rows(kind)
+    plan = _fragment_plan(kind)
+    yp = np.zeros((16, 16), np.int64)
+    yp[:12] = y
+    Mp = np.zeros((16, 16), np.int64)
+    Mp[:12, :12] = M
+    frag = [[yp[krow[k], m] for m, k in (_ptx_a(kind, t, s) for s in range(8))]
+            for t in range(32)]
+    # B = M^T with its depth permuted as A's, one n8 tile each of y's rows
+    # 0..7 and 8..15
+    B = [np.array([[Mp[8 * j + n, krow[k]] for n in range(8)] for k in range(16)])
+         for j in range(2)]
+    for _ in range(steps):
+        A = np.full((16, 16), -1, np.int64)
+        for t in range(32):
+            for s in range(8):
+                A[_ptx_a(kind, t, s)] = frag[t][s]
+        assert (A >= 0).all()             # every element of A in one slot
+        D = [A @ B[j] for j in range(2)]
+        dfrag = [[[D[j][_ptx_d(t, e)] for e in range(4)] for j in range(2)]
+                 for t in range(32)]
+        frag = [[dfrag[src][j][e] % 256 for src, j, e in plan[t]] for t in range(32)]
+    out = np.zeros((16, 16), np.int64)
+    for t in range(32):
+        for s in range(8):
+            m, k = _ptx_a(kind, t, s)
+            out[krow[k], m] = frag[t][s]
+    assert not out[12:].any()             # the padding rows stay zero
+    return out[:12]
+
+
+@pytest.mark.parametrize("kind", list(probes.KINDS))
+def test_mma_fragment_plan_chains_the_products_in_registers(kind):
+    """_k_rows is a permutation of y's 16 (padded) rows, every thread's
+    next A fragment comes from its own D fragment (no shuffle), each D
+    element feeds exactly one A slot, and the 30 chained products through
+    that plan equal mma_plain, column by column. Exact equality."""
+    krow = _k_rows(kind)
+    assert sorted(krow) == list(range(16))
+    plan = _fragment_plan(kind)
+    assert all(src == t for t in range(32) for src, _, _ in plan[t])
+    assert all(sorted((j, e) for _, j, e in plan[t]) ==
+               [(j, e) for j in range(2) for e in range(4)] for t in range(32))
+    M, y = _mma_inputs(11, 32)
+    want = probes.mma_plain(torch.from_numpy(y), torch.from_numpy(M)).numpy()
+    for c in (0, 16):
+        got = _emulate_mma_probe(kind, y[:, c:c + 16].astype(np.int64),
+                                 M.astype(np.int64), 30)
+        assert (got == want[:, c:c + 16]).all()
