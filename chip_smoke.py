@@ -13,8 +13,12 @@ needs one CUDA card (built for Hopper, sm_90a), `nvcc`, and no network. It
      lane counts the paths give it and, for the two rate probes, on the
      card-filling tensors they are timed on (exact equality: this is modular
      arithmetic; the one float chain of the rate probe has a stated
-     tolerance), the three Poseidon kernels against each other too, and
-     times them; the probes' launches are counted over their timed loop,
+     tolerance), the three Poseidon kernels against each other too (the
+     integer-pipe kernel's two grids on both sides of the lane count that
+     picks between them), and times them, the Poseidon kernels in turns at
+     every lane count a verifier path launches them at, each beside its
+     bound there (as device time: launches replayed from a CUDA graph); the
+     probes' launches are counted over their timed loop,
      which is their path: no verifier path launches them, and that is
      checked;
   4. drives the main path: 64 distinct zero-knowledge Semaphore proofs
@@ -23,7 +27,9 @@ needs one CUDA card (built for Hopper, sm_90a), `nvcc`, and no network. It
      the card, once per Poseidon kernel variant (mxu = 0, 1, 2); checks that
      all are accepted, that corrupted lanes and only those are rejected,
      that the selected kernel's launch count equals the number of
-     permutation calls the path makes and the other kernels' is 0, that
+     permutation calls the path makes (136 of 1,024 lanes, 57 of 28,672
+     and 8 of 114,688, by a wrapper that records each call's lane count)
+     and the other kernels' is 0, that
      accept bits and challenges are equal across the variants, and that
      they equal the same path run with the plain permutation on the card
      and on the CPU;
@@ -67,6 +73,7 @@ from stark_verifier_tpu_torch.ops import cuda_build, gl64, hashers, probes
 from stark_verifier_tpu_torch.ops import poseidon_bn254_kernel as bk
 from stark_verifier_tpu_torch.ops import poseidon_gl as pg
 from stark_verifier_tpu_torch.ops import poseidon_kernel as pk
+from stark_verifier_tpu_torch.utils.roofline import graph_ms
 
 REPO = Path(__file__).resolve().parent
 FIXTURE = REPO / "fixtures" / "sem_zk20b64.npz"
@@ -86,18 +93,34 @@ PEAK_INT32_INSTR_PER_S = 67e12 / 2 / 2
 PEAK_INT8_OPS_PER_S = 1979e12
 
 # 32-bit integer instructions the permutation needs at the least, by count
-# of the algorithm (csrc/poseidon_gl.cu), one lane:
+# of the algorithm, one lane, at these unit costs:
 #   field multiply: a 64x64->128 product is 4 wide 32x32 multiplies and 4
 #     carry adds; the Goldilocks fold is 12 add/compare/select -> 20;
+#   round-constant add on any representative: 9;
+#   dense MDS layer: 2 * (144 + 1) wide multiply-adds of the words' 32-bit
+#     halves by the matrix's entries (all below 2^6) + 12 recombine-and-fold
+#     of about 10 -> 410;
 #   s-boxes: 4 multiplies each, 12 lanes in 8 full rounds + 1 lane in 22
-#     partial rounds -> 472 multiplies;
-#   round-constant add on any representative: 9, for 30 * 12 words;
-#   MDS layer: 2 * (144 + 1) wide multiply-adds + 12 recombine-and-fold of
-#     about 10 -> 410, for 30 layers.
-# The three Poseidon kernels compute one function, so they share this count
-# and one bound: the tensor-core variants are not given a lower one for
-# executing fewer integer instructions.
-INT32_INSTR_PER_PERMUTATION = 472 * 20 + 360 * 9 + 30 * 410
+#     partial rounds -> 472 multiplies in every form below.
+# Three forms of the same function:
+#   dense (the TPU kernel's): 360 constant adds, 30 dense layers -> 24,980;
+#   plonky2's fast form: the partial rounds' constants carried forward (12
+#     adds before them, then one a round, the last 0) and their matrices
+#     factored into an 11 x 11 full matrix applied once and 22 sparse ones,
+#     whose entries are full 64-bit words: 121 + 22 * 11 products a 64x64
+#     -> 128 product (8) into a 160-bit running sum (3) each, 11 + 22 folds
+#     of that sum (12), 22 * 11 field multiplies v_i * s0 and adds (9), and
+#     each round's s0 * 25 (5) -> 25,398 with the 8 dense full-round layers;
+#   the constants carried forward as in plonky2's form, the matrices kept
+#     dense (csrc/poseidon_gl.cu): 96 + 12 + 21 = 129 constant adds, 30
+#     dense layers -> 22,901, the least of the three.
+# The three Poseidon kernels compute one function, so they share the least
+# count and one bound; the dense count is printed beside it.
+INT32_INSTR_PER_PERMUTATION = 472 * 20 + 129 * 9 + 30 * 410
+INT32_INSTR_PER_PERMUTATION_DENSE = 472 * 20 + 360 * 9 + 30 * 410
+INT32_INSTR_PER_PERMUTATION_SPARSE = (
+    472 * 20 + (96 + 12 + 21 + 22 * 11) * 9 + 8 * 410
+    + (121 + 22 * 11) * (8 + 3) + (11 + 22) * 12 + 22 * 11 * 20 + 22 * 5)
 BYTES_PER_PERMUTATION = 2 * 12 * 8
 
 # The same count for the BN254 bridge permutation, one lane: the least that
@@ -138,6 +161,9 @@ BYTES_PER_PERMUTATION = 2 * 12 * 8
 BRIDGE_INT32_INSTR_PER_PERMUTATION = (
     756 * 128 + 100 * (2 * 92 + 128) + 4 * 12 * 8
     + (344 + 300 + 4 + 4) * 156 + (240 + 100) * 8 + 168 + 732)
+
+# machine instructions of one mad_wide_u32 step of alu_probe (phase_probes)
+MAD_WIDE_STEP_INSTRUCTIONS = 2.5
 
 KERNEL_FILES = {
     "poseidon_permute": ("stark_verifier_tpu_torch/ops/csrc/poseidon_gl.cu",
@@ -256,14 +282,33 @@ def kernel_row(name, ms, plain_ms, t_bytes, t_ops, library_ms=None,
             "bound_operations_ms": t_ops, **extra}
 
 
+# Lane counts at which a verifier path launches the Poseidon kernel: one
+# proof's transcript, leaf hashes and merged walk (1, 28, 112), the wrapped
+# path's public-input hash (256), and a zk20 batch of 1024: its transcript
+# (1024), leaf hashes and fold-layer walks (28 x 1024), merged 4-oracle walk
+# (4 x 28 x 1024).
+PATH_LANES = [1, 28, 112, WRAPPED_BATCH, BATCH, 28 * BATCH, 4 * 28 * BATCH]
+# launches by lane count in one zk20 batch of 1024 (phase_main_path checks it)
+ZK20_LAUNCHES_BY_LANES = {BATCH: 136, 28 * BATCH: 57, 4 * 28 * BATCH: 8}
+
+
+def poseidon_bound_ms(lanes):
+    """(bytes, operations) bounds of `lanes` permutations, in ms."""
+    return (lanes * BYTES_PER_PERMUTATION / PEAK_BYTES_PER_S * 1e3,
+            lanes * INT32_INSTR_PER_PERMUTATION / PEAK_INT32_INSTR_PER_S * 1e3)
+
+
 def phase_poseidon_kernels(device, rows):
     """The three Poseidon kernels against their plain versions and against
-    each other on the card, then timed in turns."""
+    each other on the card, then timed in turns at every lane count a
+    verifier path launches them at."""
     rng = np.random.default_rng(SEED)
-    lane_counts = [1, 7, 8, 28, 112, WRAPPED_BATCH, 1024, 1025, 28 * BATCH,
-                   4 * 28 * BATCH]
+    # both sides of the wrapper's threshold between its two grids
+    lane_counts = sorted(set(PATH_LANES) | {7, 8, 1025, pk.SPLIT_MAX_LANES,
+                                              pk.SPLIT_MAX_LANES + 1})
+    inputs = {}
     for lanes in lane_counts:
-        x = gl64.from_u64(edge_state(rng, lanes), device)
+        x = inputs[lanes] = gl64.from_u64(edge_state(rng, lanes), device)
         first = None
         for mxu, name in enumerate(pk.KERNELS):
             got = pk.permute(x, mxu)
@@ -283,30 +328,43 @@ def phase_poseidon_kernels(device, rows):
                 got2 = pk.permute(x.reshape(12, BATCH, 28), mxu)
                 check(torch.equal(got2.reshape(12, -1), want),
                       f"{name} differs on a [12, B, Q] state")
-    timed = {}
-    for lanes in lane_counts[-2:]:
-        x = gl64.from_u64(edge_state(rng, lanes), device)
-        ms = {}
+    # timed on the states they were compared on, in turns at each count,
+    # each as 50 launches of the wrapper in a CUDA graph
+    timed = {name: {} for name in pk.KERNELS}
+    for lanes in PATH_LANES:
+        x = inputs[lanes]
         for mxu in (0, 1, 2, 2, 1, 0):  # in turns: a drifting clock favours none
-            for _ in range(3):
-                pk.permute(x, mxu)
-            t = cuda_ms(lambda: pk.permute(x, mxu), 50)
-            ms[mxu] = min(t, ms.get(mxu, t))
-        timed[lanes] = ms
-    lanes = lane_counts[-1]
-    t_bytes = lanes * BYTES_PER_PERMUTATION / PEAK_BYTES_PER_S * 1e3
-    t_ops = lanes * INT32_INSTR_PER_PERMUTATION / PEAK_INT32_INSTR_PER_S * 1e3
+            t = graph_ms(lambda: pk.permute(x, mxu), 50)
+            by = timed[pk.KERNELS[mxu]]
+            by[lanes] = min(t, by.get(lanes, t))
+    by_lanes = {}
+    for lanes in PATH_LANES:
+        t_bytes, t_ops = poseidon_bound_ms(lanes)
+        bound = max(t_bytes, t_ops)
+        by_lanes[lanes] = {
+            "bound_ms": bound, "grid_threads_per_permutation":
+                pk.threads_per_permutation(lanes), **{
+            name: {"ms": timed[name][lanes], "share_of_bound": bound / timed[name][lanes]}
+            for name in pk.KERNELS}}
+    lanes = PATH_LANES[-1]
+    x = inputs[lanes]
+    t_bytes, t_ops = poseidon_bound_ms(lanes)
     for mxu, name in enumerate(pk.KERNELS):
         pk.permute_plain(x, mxu)
         plain_ms = cuda_ms(lambda: pk.permute_plain(x, mxu), 3)
-        ms = timed[lanes][mxu]
+        ms = timed[name][lanes]
         # library_ms None: no PyTorch call computes this function
         rows[name] = kernel_row(
             name, ms, plain_ms, t_bytes, t_ops, lanes=lanes,
-            ms_at_28672_lanes=timed[lane_counts[-2]][mxu],
+            ms_by_lanes=timed[name],
             permutations_per_s=lanes / (ms * 1e-3))
     emit({"phase": "poseidon_kernels", "lane_counts": lane_counts,
           "equal_to_plain_and_to_each_other": True,
+          "instructions_per_permutation": INT32_INSTR_PER_PERMUTATION,
+          "instructions_per_permutation_dense": INT32_INSTR_PER_PERMUTATION_DENSE,
+          "instructions_per_permutation_sparse": INT32_INSTR_PER_PERMUTATION_SPARSE,
+          "split_max_lanes": pk.SPLIT_MAX_LANES,
+          "by_lanes": by_lanes,
           **{name: rows[name] for name in pk.KERNELS}})
 
 
@@ -388,12 +446,18 @@ def phase_probes(device, rows):
           and not any(bk.LAUNCHES.values()),
           "the probes' path launched a Poseidon kernel")
 
-    # one wide multiply-add a step on the 64-lane integer pipe
-    ops = n * chain * 4
+    # a mad_wide_u32 step is 2.5 machine instructions: IMAD.WIDE.U32 with a
+    # zero addend, the 64-bit add as IADD3 and half an IADD3.X (two steps'
+    # high words share one three-input add) -- the loop body of the ilp-4
+    # kernel holds 32 + 32 + 16 of them for 32 steps (cuobjdump -sass of the
+    # built library, printed by tools/torch_vpu_microbench.py), each counted
+    # at the 32-bit integer rate like every instruction of the bounds here
+    ops = n * chain * 4 * MAD_WIDE_STEP_INSTRUCTIONS
     rows["alu_probe"] = kernel_row(
         "alu_probe", per_op[f"{row_op}, ilp=4"]["ms"], alu_plain_ms[row_op, 4],
         n * (4 + 8) / PEAK_BYTES_PER_S * 1e3, ops / PEAK_INT32_INSTR_PER_S * 1e3,
         max_abs_err=worst_fma, op=row_op, ilp=4, chain=chain, elements=n,
+        instructions_per_step=MAD_WIDE_STEP_INSTRUCTIONS,
         tolerance="fma_f32 rtol 1e-5, every other op exact")
     # the one PyTorch call that computes the products: torch.matmul, chained
     # (scaled so that float32 stays finite without the mod 256)
@@ -500,12 +564,19 @@ def phase_main_path(device, rows):
     ok64 = fn_count(pa64)
     n_calls = calls[0]
 
-    # ---- the main path once per kernel variant, counted
+    # ---- the main path once per kernel variant, counted: every call
+    # recorded by its lane count as well
     default = pk._use_mxu()
-    launches, ms_once, ch_by = {}, {}, {}
+    launches, ms_once, ch_by, by_lanes = {}, {}, {}, {}
     for mxu, name in enumerate(pk.KERNELS):
-        fn_m = fn if mxu == default else FS.make_verifier_fn_batched(
-            common, vk, permute=PERMUTES[mxu], inner_permute=PERMUTES[mxu])[0]
+        lane_counts = []
+
+        def recording(F_, state, mxu=mxu, lane_counts=lane_counts):
+            lane_counts.append(state.numel() // 12)
+            return pg.permute(F_, state, mxu)
+
+        fn_m = FS.make_verifier_fn_batched(common, vk, permute=recording,
+                                           inner_permute=recording)[0]
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()
@@ -526,6 +597,10 @@ def phase_main_path(device, rows):
               f"mxu={mxu}: another kernel was launched: {counts}, "
               f"{probes.LAUNCHES}, {bk.LAUNCHES}")
         launches[name] = counts[name]
+        by_lanes[name] = {n: lane_counts.count(n) for n in sorted(set(lane_counts))}
+        check(by_lanes[name] == ZK20_LAUNCHES_BY_LANES,
+              f"mxu={mxu}: launches by lane count {by_lanes[name]}, expected "
+              f"{ZK20_LAUNCHES_BY_LANES}")
         # corrupted lanes, and only those, are rejected
         ok_bad = fn_m(pa_bad)
         check(torch.equal(ok_bad.cpu(), expect),
@@ -565,6 +640,7 @@ def phase_main_path(device, rows):
     # ---- steady state, default variant
     reps = 5
     times = []
+    reset_counts()
     for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -572,6 +648,8 @@ def phase_main_path(device, rows):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     check(bool(ok.all()), "a repetition rejected an honest proof")
+    check(pk.LAUNCHES[pk.KERNELS[default]] == reps * n_calls,
+          f"the default entry point launched {pk.LAUNCHES} in {reps} batches")
     ms = float(np.median(times)) * 1e3
     for name in pk.KERNELS:
         rows[name]["launches"] = launches[name]
@@ -582,6 +660,7 @@ def phase_main_path(device, rows):
           "fold_layers": len(common.fri_params.reduction_arity_bits),
           "accepted": int(ok.sum()), "rejected_lanes": lanes,
           "launches_by_variant": launches, "permutation_calls": n_calls,
+          "launches_by_lanes": by_lanes[pk.KERNELS[default]],
           "equal_across_variants": True,
           "equal_to_plain_on_card": True, "equal_to_cpu": True,
           "default_variant": pk.KERNELS[default],

@@ -2,33 +2,126 @@
 // dense circulant-plus-diagonal MDS) for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernel `poseidon_permute_batch` / `_kernel` of
-// stark_verifier_tpu/ops/pallas/poseidon_kernel.py (the pure vector-unit
+// stark_verifier_tpu/ops/pallas/poseidon_kernel.py:256 (the pure vector-unit
 // body). It computes the same function, u64[12, L] -> u64[12, L]: any
 // representative in [0, 2^64) is accepted on input, the rounds run on
 // non-canonical representatives, and the output is canonical.
 //
-// What bounds it on this card: operations, not bytes. A permutation moves
-// 192 bytes and does about 470 field multiplications and 30 MDS layers,
-// some 25,000 32-bit integer instructions, so the integer pipes are busy
-// for about twenty times as long as the memory system (see PERF.md).
+// What bounds it on this card. A permutation moves 192 bytes and needs some
+// 23,000 32-bit integer instructions (PERF.md, chip_smoke.py), so at wide
+// lane counts the integer pipes bind, not memory. The verifier launches it
+// at very different widths: one zk20 batch of 1,024 proofs makes 136 calls
+// of 1,024 lanes (public-input hash and transcript, one after another), 57
+// of 28,672 and 8 of 114,688; a single proof calls it at 1, 28 and 112
+// lanes. At 1,024 lanes one thread a permutation fills 8 of the 132 SMs
+// with one warp a scheduler, and the call takes as long as that warp needs
+// to issue the whole permutation (after ptxas a full round is some 2,050
+// instructions and a partial round some 890) and wait on its chains:
+// latency binds there, not the card's rate.
 //
 // What the design does about it:
-//   * one thread per permutation with the 12-word state in registers; the
-//     lane index is fastest in memory ([12, L] contiguous), so the 12 loads
-//     and 12 stores of a warp are coalesced and nothing else touches memory;
-//   * native 64-bit arithmetic: lo = a * b, hi = __umul64hi(a, b), then one
-//     Goldilocks fold (the TPU carried four 16-bit limb planes because it
-//     has no 64-bit integer unit; none of that is kept);
-//   * the MDS layer needs no matrix unit: its entries are tiny, so the low
-//     and the high 32-bit halves of the state words are accumulated apart
-//     with 32x32->64 multiply-adds and folded once per output word;
-//   * round constants sit in __constant__ memory, where a warp-uniform read
-//     is a broadcast;
-//   * the ragged tail is masked, so every lane count uses this kernel.
+//   * partial rounds with plonky2's forwarded constants (FAST_PARTIAL_*):
+//     the constants of words 1..11 are carried back through the inverse MDS
+//     into one 12-word vector added before the first partial round, and
+//     each partial round adds one constant, to word 0, after its s-box. That
+//     saves 11 of the 12 additions of every partial round. The MDS stays
+//     dense: its entries are below 2^6, so a row is 24 wide multiply-adds of
+//     32-bit halves, where plonky2's sparse factors are full 64-bit
+//     constants whose products cost more than they save (PERF.md counts
+//     both forms; tools/torch_poseidon_alternatives.py measures them);
+//   * wide calls (more than SPLIT_MAX_LANES, chosen by the wrapper in
+//     ops/poseidon_kernel.py): one thread a permutation, the 12 words in
+//     registers, 128-thread blocks;
+//   * narrow calls: SPLIT = 12 threads a permutation, one word and one MDS
+//     row each, in groups of 16 threads (four run along and write nothing),
+//     two permutations a warp, one warp a block, so that 1,024 lanes spread
+//     over 512 warps on all SMs and each thread issues a sixth of what one
+//     thread a permutation does. Between layers the 12 words pass through
+//     the warp's stage in shared memory (two buffers, one __syncwarp a
+//     layer). In a partial round every thread of a group computes the s-box
+//     of word 0 itself: no divergence and no broadcast, and the products of
+//     words 1..11 of its row run while the s-box's chain does; a row is two
+//     chains of multiply-adds, not one. Each block first copies the
+//     constant tables into shared memory (TABLES), since a round's first
+//     read of __constant__ memory misses its cache. A lane count that is not
+//     a multiple of two is masked per permutation: the group past the end
+//     takes lane 0's words through every layer and stores nothing;
+//   * native 64-bit arithmetic (goldilocks.cuh): lo = a * b, hi =
+//     __umul64hi(a, b), one Goldilocks fold; an MDS row's multiply-adds as
+//     inline mad.wide.u32, its fold and a round constant's add in the
+//     shorter forms their operands' ranges allow (fold_row, add_const);
+//   * the wide grid reads its round constants from __constant__ memory,
+//     where a warp's uniform read is a broadcast.
 //
 // Plain C interface (loaded with ctypes): no PyTorch headers, launches on
 // the stream it is given, allocates nothing, returns cudaGetLastError().
 #include "goldilocks.cuh"
+
+#define LANE_THREADS 128     // block of the one-thread-a-permutation grid
+#define SPLIT_THREADS 32     // block of the SPLIT-threads-a-permutation grid
+#define SPLIT 12             // threads a permutation in the narrow grid
+#define SPLIT_WORDS (WIDTH / SPLIT)          // words (and MDS rows) a thread
+// a permutation's group of threads: SPLIT rounded up to a power of two
+#define SPLIT_GROUP (SPLIT <= 2 ? 2 : SPLIT <= 4 ? 4 : SPLIT <= 8 ? 8 : 16)
+#define SPLIT_PERMS (32 / SPLIT_GROUP)       // permutations a warp
+#define SPLIT_WARPS (SPLIT_THREADS / 32)
+static_assert(WIDTH % SPLIT == 0, "SPLIT must divide the width");
+
+// plonky2's forwarded partial-round constants: FAST_PARTIAL_FIRST_ROUND_
+// CONSTANT (12 words, added before the first partial round), then
+// FAST_PARTIAL_ROUND_CONSTANTS (22, one a partial round, added to word 0
+// after the s-box; the last is 0)
+__constant__ u64 PARTIAL_CONSTANTS[WIDTH + N_PARTIAL];
+
+// Both tables again in global memory, one after the other, for the narrow
+// grid: each of its blocks copies them into shared memory with one
+// coalesced load a thread and word, so that no round waits on a constant
+// fetched from L2. Constant memory serves a warp's reads one address at a
+// time, and a round's first read misses its cache.
+#define TABLE_WORDS (N_ROUNDS * WIDTH + WIDTH + N_PARTIAL)
+__device__ u64 TABLES[TABLE_WORDS];
+
+// the MDS matrix: circulant first row and the diagonal's one nonzero entry
+#define MDS_CIRC {17, 15, 41, 16, 2, 28, 13, 13, 39, 18, 34, 20}
+constexpr u32 DIAG0 = 8;
+__constant__ u32 CIRC_TABLE[WIDTH] = MDS_CIRC;
+
+// sum += a * b, as PTX's mad.wide.u32. Written as C, (u64)a * b summed in
+// a u64, nvcc also adds a zero high word kept in a uniform register after
+// most of the products (a VIADD each, 234 in a partial round's 996
+// instructions); as inline PTX a partial round is 892, and the wide grid
+// 7-9 % faster at 114,688 lanes (tools/torch_poseidon_alternatives.py,
+// `cmad`). ptxas still turns most of them into products summed by
+// three-input adds.
+__device__ __forceinline__ void mad_wide(u64& sum, u32 a, u32 b) {
+#ifdef __CUDA_ARCH__
+    asm("mad.wide.u32 %0, %1, %2, %0;" : "+l"(sum) : "r"(a), "r"(b));
+#else
+    sum += (u64)a * b;
+#endif
+}
+
+// a + c mod p for a round constant c < p (every table entry is canonical)
+// and any representative a: a wrap past 2^64 leaves a + c - 2^64 < c, so the
+// one +EPS that folds it cannot wrap again (add_gl needs two corrections
+// only when both operands may be above p).
+__device__ __forceinline__ u64 add_const(u64 a, u64 c) {
+    u64 s = a + c;
+    return s + ((s < c) ? EPS : 0ull);
+}
+
+// (sum_lo + sum_hi * 2^32) mod p for an MDS row's two partial sums, each
+// below 2^41 (see mds_layer): the value is below 2^74, so its high word h is
+// below 2^10, and the fold is lo + h * EPS with one carry corrected. This is
+// reduce128 (goldilocks.cuh) with its borrow step dropped, since h >> 32 is
+// 0: the same representative, in fewer instructions.
+__device__ __forceinline__ u64 fold_row(u64 sum_lo, u64 sum_hi) {
+    u64 lo = sum_lo + (sum_hi << 32);
+    u32 h = (u32)(sum_hi >> 32) + ((lo < sum_lo) ? 1u : 0u);
+    u64 t = (u64)h * EPS;                // below 2^42
+    u64 r = lo + t;
+    return r + ((r < t) ? EPS : 0ull);   // then below 2^42 + EPS: no wrap
+}
 
 // out[r] = sum_t CIRC[t] * s[(r + t) % 12] + DIAG[r] * s[r], DIAG = (8, 0...).
 //
@@ -36,10 +129,9 @@
 // most. Each half of a state word is below 2^32, so each of the two sums is
 // below 264 * 2^32 < 2^41 and exact in a u64. The row's value
 // sum_lo + sum_hi * 2^32 is below 2^73 + 2^41 < 2^74: a 128-bit value whose
-// high word is below 2^10, which fold_halves reduces in one step.
+// high word is below 2^10, which fold_row reduces in one step.
 __device__ __forceinline__ void mds_layer(u64 (&s)[WIDTH]) {
-    constexpr u32 CIRC[WIDTH] = {17, 15, 41, 16, 2, 28, 13, 13, 39, 18, 34, 20};
-    constexpr u32 DIAG0 = 8;
+    constexpr u32 CIRC[WIDTH] = MDS_CIRC;
     u32 lo[WIDTH], hi[WIDTH];
 #pragma unroll
     for (int j = 0; j < WIDTH; ++j) {
@@ -51,68 +143,239 @@ __device__ __forceinline__ void mds_layer(u64 (&s)[WIDTH]) {
         u64 sum_lo = 0, sum_hi = 0;
 #pragma unroll
         for (int t = 0; t < WIDTH; ++t) {
-            sum_lo += (u64)lo[(r + t) % WIDTH] * CIRC[t];
-            sum_hi += (u64)hi[(r + t) % WIDTH] * CIRC[t];
+            mad_wide(sum_lo, lo[(r + t) % WIDTH], CIRC[t]);
+            mad_wide(sum_hi, hi[(r + t) % WIDTH], CIRC[t]);
         }
         if (r == 0) {
-            sum_lo += (u64)lo[0] * DIAG0;
-            sum_hi += (u64)hi[0] * DIAG0;
+            mad_wide(sum_lo, lo[0], DIAG0);
+            mad_wide(sum_hi, hi[0], DIAG0);
         }
-        s[r] = fold_halves(sum_lo, sum_hi);
+        s[r] = fold_row(sum_lo, sum_hi);
     }
 }
 
-__device__ __forceinline__ void full_round(u64 (&s)[WIDTH], int round) {
-    add_round_constants(s, round);
+__device__ __forceinline__ void full_round(u64 (&s)[WIDTH], int r) {
 #pragma unroll
-    for (int j = 0; j < WIDTH; ++j) s[j] = sbox7(s[j]);
+    for (int j = 0; j < WIDTH; ++j)
+        s[j] = sbox7(add_const(s[j], ROUND_CONSTANTS[r * WIDTH + j]));
     mds_layer(s);
 }
 
-__device__ __forceinline__ void partial_round(u64 (&s)[WIDTH], int round) {
-    add_round_constants(s, round);
-    s[0] = sbox7(s[0]);
-    mds_layer(s);
-}
-
-__global__ void __launch_bounds__(128)
-poseidon_permute_kernel(const u64* __restrict__ in, u64* __restrict__ out,
-                        long long L) {
-    long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+// ------------------------------------------- one thread a permutation
+__device__ __forceinline__ void permute_lane(const u64* __restrict__ in,
+                                             u64* __restrict__ out, long long L) {
+    long long i = (long long)blockIdx.x * LANE_THREADS + threadIdx.x;
     if (i >= L) return;
     u64 s[WIDTH];
 #pragma unroll
     for (int j = 0; j < WIDTH; ++j) s[j] = in[j * L + i];
 
-    int round = 0;
 #pragma unroll 1
-    for (int k = 0; k < HALF_FULL; ++k) full_round(s, round++);
+    for (int r = 0; r < HALF_FULL; ++r) full_round(s, r);
+#pragma unroll
+    for (int j = 0; j < WIDTH; ++j) s[j] = add_const(s[j], PARTIAL_CONSTANTS[j]);
 #pragma unroll 1
-    for (int k = 0; k < N_PARTIAL; ++k) partial_round(s, round++);
+    for (int r = 0; r < N_PARTIAL; ++r) {
+        s[0] = add_const(sbox7(s[0]), PARTIAL_CONSTANTS[WIDTH + r]);
+        mds_layer(s);
+    }
 #pragma unroll 1
-    for (int k = 0; k < HALF_FULL; ++k) full_round(s, round++);
+    for (int r = HALF_FULL + N_PARTIAL; r < N_ROUNDS; ++r) full_round(s, r);
+#pragma unroll
+    for (int j = 0; j < WIDTH; ++j) out[j * L + i] = canonical(s[j]);
+}
 
+// ------------------------------------------- SPLIT threads a permutation
+// A group of SPLIT_GROUP threads (SPLIT rounded up to a power of two) takes
+// one permutation; thread q < SPLIT of it owns words and rows q + SPLIT * k,
+// k < WIDTH / SPLIT, and the threads above SPLIT, if any, own nothing: they
+// run along (the warp syncs as one) and write nothing.
+//
+// Row q + SPLIT * k, for the thread q that owns it: its coefficient of word
+// j is CIRC[(j - q - SPLIT * k) mod 12], which is m[(j - SPLIT * k) mod 12]
+// for the thread's row-q coefficients m[j] = CIRC[(j - q) mod 12] (loaded
+// once), so the rotation is an index known at compile time. The diagonal
+// entry (8, row 0 only) comes in as d0 = 8 on thread 0's first row, else 0.
+template <int SHIFT>
+__device__ __forceinline__ u64 split_row(const u32 (&m)[WIDTH], u32 d0,
+                                         const u32 (&lo)[WIDTH],
+                                         const u32 (&hi)[WIDTH]) {
+    // two running sums a half, over the even and the odd words: half the
+    // chain of dependent multiply-adds, and each sum still below 2^41
+    u64 sum_lo[2] = {0, 0}, sum_hi[2] = {0, 0};
 #pragma unroll
     for (int j = 0; j < WIDTH; ++j) {
-        out[j * L + i] = canonical(s[j]);
+        const u32 c = m[(j - SHIFT + WIDTH) % WIDTH];
+        mad_wide(sum_lo[j % 2], lo[j], c);
+        mad_wide(sum_hi[j % 2], hi[j], c);
     }
+    if (SHIFT == 0) {
+        mad_wide(sum_lo[1], lo[0], d0);
+        mad_wide(sum_hi[1], hi[0], d0);
+    }
+    return fold_row(sum_lo[0] + sum_lo[1], sum_hi[0] + sum_hi[1]);
+}
+
+template <int K = 0>
+__device__ __forceinline__ void split_rows(u64 (&mine)[SPLIT_WORDS],
+                                           const u32 (&m)[WIDTH], u32 d0,
+                                           const u32 (&lo)[WIDTH],
+                                           const u32 (&hi)[WIDTH]) {
+    if constexpr (K < SPLIT_WORDS) {
+        mine[K] = split_row<SPLIT * K>(m, d0, lo, hi);
+        split_rows<K + 1>(mine, m, d0, lo, hi);
+    }
+}
+
+// The group's 12 words into every thread of it: each owner writes its
+// own, the warp syncs, each thread reads all twelve. Two buffers alternate,
+// so a buffer is written again only after a later __syncwarp, which every
+// thread passes after it has read it.
+__device__ __forceinline__ void split_exchange(u64 (*stage)[WIDTH], int q, bool owner,
+                                               const u64 (&mine)[SPLIT_WORDS],
+                                               u32 (&lo)[WIDTH], u32 (&hi)[WIDTH],
+                                               u64& w0) {
+    if (owner) {
+#pragma unroll
+        for (int k = 0; k < SPLIT_WORDS; ++k) (*stage)[q + SPLIT * k] = mine[k];
+    }
+    __syncwarp();
+    const ulonglong2* row = reinterpret_cast<const ulonglong2*>(*stage);
+#pragma unroll
+    for (int j = 0; j < WIDTH / 2; ++j) {
+        ulonglong2 v = row[j];
+        lo[2 * j] = (u32)v.x;
+        hi[2 * j] = (u32)(v.x >> 32);
+        lo[2 * j + 1] = (u32)v.y;
+        hi[2 * j + 1] = (u32)(v.y >> 32);
+        if (j == 0) w0 = v.x;
+    }
+}
+
+// Round constant i of the block's copy of TABLES: the 30 x 12 round
+// constants, then the forwarded partial-round ones.
+__device__ __forceinline__ u64 split_constant(const u64* tables, int i) {
+    return tables[i];
+}
+
+__device__ __forceinline__ void split_full_round(u64 (&mine)[SPLIT_WORDS],
+                                                 const u64* tables, int q, int r) {
+#pragma unroll
+    for (int k = 0; k < SPLIT_WORDS; ++k)
+        mine[k] = sbox7(add_const(mine[k],
+                                  split_constant(tables, r * WIDTH + q + SPLIT * k)));
+}
+
+__device__ __forceinline__ void permute_split(const u64* __restrict__ in,
+                                              u64* __restrict__ out, long long L) {
+    __shared__ __align__(16) u64 stage[SPLIT_WARPS][2][SPLIT_PERMS][WIDTH];
+    __shared__ u64 tables[TABLE_WORDS];
+    for (int i = threadIdx.x; i < TABLE_WORDS; i += SPLIT_THREADS) tables[i] = TABLES[i];
+    __syncthreads();
+    const int warp = threadIdx.x / 32, lw = threadIdx.x % 32;
+    const int g = lw / SPLIT_GROUP;
+    const bool owner = lw % SPLIT_GROUP < SPLIT;
+    const int q = owner ? lw % SPLIT_GROUP : 0;
+    const long long lane =
+        ((long long)blockIdx.x * SPLIT_WARPS + warp) * SPLIT_PERMS + g;
+    const bool live = lane < L;
+    const long long at = live ? lane : 0;
+
+    u32 m[WIDTH];
+#pragma unroll
+    for (int j = 0; j < WIDTH; ++j) m[j] = CIRC_TABLE[(j - q + WIDTH) % WIDTH];
+    const u32 d0 = (q == 0) ? DIAG0 : 0;
+
+    u64 mine[SPLIT_WORDS];
+#pragma unroll
+    for (int k = 0; k < SPLIT_WORDS; ++k) mine[k] = in[(q + SPLIT * k) * L + at];
+    u32 lo[WIDTH], hi[WIDTH];
+    u64 w0;
+    int b = 0;
+
+#pragma unroll 1
+    for (int r = 0; r < HALF_FULL; ++r) {
+        split_full_round(mine, tables, q, r);
+        split_exchange(&stage[warp][b][g], q, owner, mine, lo, hi, w0);
+        b ^= 1;
+        split_rows(mine, m, d0, lo, hi);
+    }
+#pragma unroll
+    for (int k = 0; k < SPLIT_WORDS; ++k)
+        mine[k] = add_const(mine[k],
+                            split_constant(tables, N_ROUNDS * WIDTH + q + SPLIT * k));
+#pragma unroll 1
+    for (int r = 0; r < N_PARTIAL; ++r) {
+        split_exchange(&stage[warp][b][g], q, owner, mine, lo, hi, w0);
+        b ^= 1;
+        // every thread of the group: the s-box of word 0, then its rows
+        w0 = add_const(sbox7(w0),
+                       split_constant(tables, N_ROUNDS * WIDTH + WIDTH + r));
+        lo[0] = (u32)w0;
+        hi[0] = (u32)(w0 >> 32);
+        split_rows(mine, m, d0, lo, hi);
+    }
+#pragma unroll 1
+    for (int r = HALF_FULL + N_PARTIAL; r < N_ROUNDS; ++r) {
+        split_full_round(mine, tables, q, r);
+        split_exchange(&stage[warp][b][g], q, owner, mine, lo, hi, w0);
+        b ^= 1;
+        split_rows(mine, m, d0, lo, hi);
+    }
+    if (live && owner) {
+#pragma unroll
+        for (int k = 0; k < SPLIT_WORDS; ++k)
+            out[(q + SPLIT * k) * L + lane] = canonical(mine[k]);
+    }
+}
+
+// THREADS_PER_PERM 1: the wide grid; SPLIT: the narrow one.
+template <int THREADS_PER_PERM>
+__global__ void __launch_bounds__(THREADS_PER_PERM == 1 ? LANE_THREADS : SPLIT_THREADS)
+poseidon_permute_kernel(const u64* __restrict__ in, u64* __restrict__ out,
+                        long long L) {
+    if constexpr (THREADS_PER_PERM == 1) permute_lane(in, out, L);
+    else permute_split(in, out, L);
 }
 
 extern "C" {
 
-// Copies the 30 x 12 round constants (host memory) into __constant__ memory.
+// Copies the 30 x 12 round constants (host memory) into __constant__ memory
+// and into TABLES; the kernels read the full rounds' rows (0..3, 26..29).
 int poseidon_set_round_constants(const void* host_u64) {
-    return set_round_constants(host_u64);
+    int err = set_round_constants(host_u64);
+    if (err) return err;
+    return (int)cudaMemcpyToSymbol(TABLES, host_u64, sizeof(u64) * N_ROUNDS * WIDTH);
 }
 
-// in, out: device pointers to two distinct contiguous u64[12, L] buffers.
-int poseidon_permute(const void* in, void* out, long long L, void* stream) {
+// Copies the 12 + 22 forwarded partial-round constants (host memory) into
+// __constant__ memory and into TABLES.
+int poseidon_set_partial_constants(const void* host_u64) {
+    int err = (int)cudaMemcpyToSymbol(PARTIAL_CONSTANTS, host_u64,
+                                      sizeof(u64) * (WIDTH + N_PARTIAL));
+    if (err) return err;
+    return (int)cudaMemcpyToSymbol(TABLES, host_u64, sizeof(u64) * (WIDTH + N_PARTIAL),
+                                   sizeof(u64) * N_ROUNDS * WIDTH);
+}
+
+// in, out: device pointers to two distinct contiguous u64[12, L] buffers;
+// threads_per_perm: 1 (wide grid) or SPLIT (narrow grid).
+int poseidon_permute(const void* in, void* out, long long L,
+                     int threads_per_perm, void* stream) {
     if (L <= 0) return 0;
-    const int threads = 128;
-    long long blocks = (L + threads - 1) / threads;
-    poseidon_permute_kernel<<<(unsigned)blocks, threads, 0,
-                              (cudaStream_t)stream>>>(
-        (const u64*)in, (u64*)out, L);
+    cudaStream_t st = (cudaStream_t)stream;
+    if (threads_per_perm == 1) {
+        long long blocks = (L + LANE_THREADS - 1) / LANE_THREADS;
+        poseidon_permute_kernel<1><<<(unsigned)blocks, LANE_THREADS, 0, st>>>(
+            (const u64*)in, (u64*)out, L);
+    } else if (threads_per_perm == SPLIT) {
+        const long long per_block = SPLIT_WARPS * SPLIT_PERMS;
+        long long blocks = (L + per_block - 1) / per_block;
+        poseidon_permute_kernel<SPLIT><<<(unsigned)blocks, SPLIT_THREADS, 0, st>>>(
+            (const u64*)in, (u64*)out, L);
+    } else {
+        return (int)cudaErrorInvalidValue;
+    }
     return (int)cudaGetLastError();
 }
 

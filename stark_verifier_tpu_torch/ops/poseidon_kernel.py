@@ -14,12 +14,21 @@ stark_verifier_tpu/ops/pallas/poseidon_kernel.py, which they replace:
   1    poseidon_permute_mma    `_kernel_mxu`  tensor cores, u8 mma on bytes
   2    poseidon_permute_mma2   `_kernel_mxu2` the same, two streams a thread
 
-On the H100 all three are bound by integer operations, not bytes (192 bytes
-a permutation against some 25,000 32-bit integer instructions); see
-csrc/poseidon_gl.cu and csrc/poseidon_gl_mma.cu for what each design does
-about it. The TPU's tiling rules (128 lanes, 256 for two streams) are not
-carried over: a masked tail lets every lane count, the transcript's [12, B]
-calls and a single proof's 1, 28 and 112 lanes included, use every kernel.
+On the H100 all three are bound by integer operations at wide lane counts
+(192 bytes a permutation against some 23,000 32-bit integer instructions)
+and by latency at narrow ones; see csrc/poseidon_gl.cu and
+csrc/poseidon_gl_mma.cu for what each design does about it. The TPU's tiling
+rules (128 lanes, 256 for two streams) are not carried over: a masked tail
+lets every lane count, the transcript's [12, B] calls and a single proof's
+1, 28 and 112 lanes included, use every kernel.
+
+`poseidon_permute` has two grids, picked by the lane count: up to
+SPLIT_MAX_LANES lanes SPLIT = 12 threads share a permutation (the
+transcript's calls, one proof's calls), above it one thread takes one (the
+leaf hashes and Merkle walks of a batch). Its partial rounds take plonky2's
+forwarded constants; `schedule_permute_ints` runs its schedule on python
+ints, with its tables (`schedule_tables`) and its order of operations, and
+asserts every value bound the kernel relies on.
 
 `mxu=None` reads the environment variable SVT_POSEIDON_MXU (default 0).
 
@@ -35,6 +44,7 @@ import numpy as np
 import torch
 
 from . import gl64
+from ._poseidon_gl_constants import MDS_MATRIX_CIRC, MDS_MATRIX_DIAG
 
 WIDTH = 12
 
@@ -43,6 +53,15 @@ KERNELS = ("poseidon_permute", "poseidon_permute_mma", "poseidon_permute_mma2")
 
 # Kernel launches made by `permute` since a count was last set to 0, by kernel.
 LAUNCHES = {name: 0 for name in KERNELS}
+
+# Threads a permutation in `poseidon_permute`'s narrow grid (csrc SPLIT).
+SPLIT = 12
+# Lane counts up to which `poseidon_permute` takes the narrow grid; above
+# it, one thread a permutation. Measured on an H100 by
+# tools/torch_poseidon_alternatives.py (PERF.md): the narrow grid is the
+# faster at every count up to 8,192 lanes, the one-thread grid from 16,384
+# on.
+SPLIT_MAX_LANES = 8192
 
 # library and the C name of its round-constant upload, by kernel
 _HOME = {
@@ -71,23 +90,35 @@ def _library(name: str):
         from . import cuda_build
 
         lib = cuda_build.load(name)
+        rc, partial = schedule_tables()
+        uploads = {}
         for kernel, (home, setter) in _HOME.items():
             if home != name:
                 continue
             # without argtypes ctypes would pass pointers as 32-bit ints
             fn = getattr(lib, kernel)
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                           ctypes.c_void_p]
+            fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong]
+                           + ([ctypes.c_int] if kernel == KERNELS[0] else [])
+                           + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
+            uploads[setter] = rc
+            if kernel == KERNELS[0]:
+                uploads["poseidon_set_partial_constants"] = partial
+        for setter, table in uploads.items():
             upload = getattr(lib, setter)
             upload.argtypes = [ctypes.c_void_p]
             upload.restype = ctypes.c_int
-        rc = np.ascontiguousarray(gl64._round_constants())
-        err = upload(rc.ctypes.data)
-        if err != 0:
-            raise RuntimeError(f"{setter}: CUDA error {err}")
+            err = upload(table.ctypes.data)
+            if err != 0:
+                raise RuntimeError(f"{setter}: CUDA error {err}")
         _ready[name] = lib
     return lib
+
+
+def threads_per_permutation(lanes: int) -> int:
+    """The grid `poseidon_permute` takes for `lanes` permutations: SPLIT
+    threads a permutation up to SPLIT_MAX_LANES, else 1."""
+    return SPLIT if lanes <= SPLIT_MAX_LANES else 1
 
 
 def _check_mxu(mxu) -> int:
@@ -137,10 +168,159 @@ def permute(state: torch.Tensor, mxu=None) -> torch.Tensor:
     # The launch is asynchronous, on PyTorch's current stream: if the caller
     # drops `state` right away, the caching allocator hands its memory only
     # to later work on the same stream, which runs after the kernel.
+    grid = (threads_per_permutation(lanes),) if mxu == 0 else ()
     with torch.cuda.device(state.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = launch(state.data_ptr(), out.data_ptr(), lanes, stream)
+        err = launch(state.data_ptr(), out.data_ptr(), lanes, *grid, stream)
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
     LAUNCHES[kernel] += 1
     return out
+
+
+# ------------------------------------------------ the kernel's schedule
+# csrc/poseidon_gl.cu restated on python ints: the same tables, the same
+# order of operations, the same 64-bit words with their wraps. Each helper
+# raises ArithmeticError where a value passes a bound the kernel relies on.
+_U64 = (1 << 64) - 1
+_EPS = 0xFFFFFFFF                       # 2^64 mod p
+_CIRC = MDS_MATRIX_CIRC                 # csrc MDS_CIRC
+_DIAG0 = MDS_MATRIX_DIAG[0]              # csrc DIAG0
+
+
+def schedule_tables():
+    """The tables the wrapper uploads to `poseidon_permute`'s library:
+    u64[360], the 30 x 12 round constants (the kernel reads the full
+    rounds' rows 0..3 and 26..29), and u64[34], plonky2's forwarded
+    partial-round constants: the 12-word vector added before the first
+    partial round, then one constant a partial round, added to word 0 after
+    its s-box (the last is 0)."""
+    from ._poseidon_gl_constants import (
+        ALL_ROUND_CONSTANTS, FAST_PARTIAL_FIRST_ROUND_CONSTANT,
+        FAST_PARTIAL_ROUND_CONSTANTS)
+
+    rc = np.ascontiguousarray(np.asarray(ALL_ROUND_CONSTANTS, dtype=np.uint64))
+    partial = np.ascontiguousarray(np.asarray(
+        FAST_PARTIAL_FIRST_ROUND_CONSTANT + FAST_PARTIAL_ROUND_CONSTANTS,
+        dtype=np.uint64))
+    return rc, partial
+
+
+def _bound(ok: bool, what: str):
+    if not ok:
+        raise ArithmeticError(f"poseidon_permute's bound broken: {what}")
+
+
+def _add_const(a: int, c: int) -> int:
+    """csrc add_const: a + c for a canonical constant c, the wrap past 2^64
+    folded as +EPS once; a second wrap cannot happen."""
+    _bound(0 <= a <= _U64, "add_const operand above 2^64")
+    _bound(0 <= c < gl64.P, "add_const constant not canonical")
+    s = (a + c) & _U64
+    if s < c:
+        _bound(s + _EPS <= _U64, "add_const wrapped twice")
+        s += _EPS
+    return s
+
+
+def _reduce128(hi: int, lo: int) -> int:
+    """goldilocks.cuh reduce128: (hi * 2^64 + lo) mod p, not canonical."""
+    _bound(0 <= hi <= _U64 and 0 <= lo <= _U64, "reduce128 operand above 2^64")
+    hi_hi, hi_lo = hi >> 32, hi & _EPS
+    t0 = (lo - hi_hi) & _U64
+    if lo < hi_hi:
+        _bound(t0 >= _EPS, "reduce128 borrowed twice")
+        t0 -= _EPS
+    t1 = hi_lo * _EPS
+    _bound(t1 <= _U64, "reduce128 hi_lo * EPS above 2^64")
+    r = (t0 + t1) & _U64
+    if r < t1:
+        _bound(r + _EPS <= _U64, "reduce128 carried twice")
+        r += _EPS
+    return r
+
+
+def _mul_gl(a: int, b: int) -> int:
+    prod = a * b
+    return _reduce128(prod >> 64, prod & _U64)
+
+
+def _sbox7(x: int) -> int:
+    x2 = _mul_gl(x, x)
+    x3 = _mul_gl(x2, x)
+    x4 = _mul_gl(x2, x2)
+    return _mul_gl(x3, x4)
+
+
+def _fold_row(sum_lo: int, sum_hi: int) -> int:
+    """csrc fold_row: sum_lo + sum_hi * 2^32 for an MDS row's partial sums;
+    its high word h is below 2^10, the fold is lo + h * EPS with one carry
+    corrected."""
+    _bound(0 <= sum_lo < 1 << 41 and 0 <= sum_hi < 1 << 41,
+           "an MDS row's partial sum at or above 2^41")
+    lo = (sum_lo + (sum_hi << 32)) & _U64
+    h = (sum_hi >> 32) + (1 if lo < sum_lo else 0)
+    _bound(h < 1 << 10, "fold_row high word at or above 2^10")
+    t = h * _EPS
+    r = (lo + t) & _U64
+    if r < t:
+        _bound(r + _EPS <= _U64, "fold_row carried twice")
+        r += _EPS
+    return r
+
+
+def _mds_row(coeffs, words) -> int:
+    """One MDS row on the 32-bit halves, each half's sum in a u64."""
+    sum_lo = sum(c * (w & _EPS) for c, w in zip(coeffs, words))
+    sum_hi = sum(c * (w >> 32) for c, w in zip(coeffs, words))
+    return _fold_row(sum_lo, sum_hi)
+
+
+def _row_coeffs(r: int, threads_per_perm: int):
+    """Row r's coefficients as the kernel forms them: with one thread, as
+    CIRC rotated by r (+8 on word 0 of row 0); with K threads, as thread
+    q = r % K forms its row q + K * k from its row-q coefficients
+    m[j] = CIRC[(j - q) % 12], rotated by K * k, and d0 = 8 on thread 0's
+    first row."""
+    if threads_per_perm == 1:
+        c = [_CIRC[(j - r) % 12] for j in range(12)]
+        if r == 0:
+            c[0] += _DIAG0
+        return c
+    q, k = r % threads_per_perm, r // threads_per_perm
+    m = [_CIRC[(j - q) % 12] for j in range(12)]
+    c = [m[(j - threads_per_perm * k) % 12] for j in range(12)]
+    if k == 0:
+        c[0] += _DIAG0 if q == 0 else 0
+    return c
+
+
+def schedule_permute_ints(state, threads_per_perm: int = 1) -> list:
+    """The permutation as `poseidon_permute` computes it, on 12 python ints
+    in [0, 2^64) (any representative); canonical output. `threads_per_perm`
+    1 is the wide grid, SPLIT the narrow one (any divisor of 12 is a grid
+    the source builds): the same values, the MDS rows formed as each grid
+    forms them."""
+    if threads_per_perm not in (1, 2, 3, 4, 6, 12):
+        raise ValueError(f"threads_per_perm must divide 12, got {threads_per_perm}")
+    s = [int(v) for v in state]
+    if len(s) != WIDTH or not all(0 <= v <= _U64 for v in s):
+        raise ValueError("state must be 12 integers in [0, 2^64)")
+    rc, partial = (t.tolist() for t in schedule_tables())
+    rows = [_row_coeffs(r, threads_per_perm) for r in range(WIDTH)]
+
+    def mds(words):
+        return [_mds_row(rows[r], words) for r in range(WIDTH)]
+
+    def full_round(words, r):
+        return mds([_sbox7(_add_const(w, rc[r * WIDTH + j])) for j, w in enumerate(words)])
+
+    for r in range(4):
+        s = full_round(s, r)
+    s = [_add_const(w, partial[j]) for j, w in enumerate(s)]
+    for r in range(22):
+        s[0] = _add_const(_sbox7(s[0]), partial[WIDTH + r])
+        s = mds(s)
+    for r in range(26, 30):
+        s = full_round(s, r)
+    return [v - gl64.P if v >= gl64.P else v for v in s]

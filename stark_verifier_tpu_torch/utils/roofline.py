@@ -40,6 +40,37 @@ def _seconds(fn, reps, device):
     return start.elapsed_time(end) * 1e-3 / reps
 
 
+def graph_ms(fn, reps, replays=3):
+    """Device time of one call of `fn` on the card, in ms: `reps` calls
+    captured in a CUDA graph and replayed, so that no host work stands
+    between the launches (a narrow kernel finishes before the host has
+    issued the next eager call); the least of `replays` replays."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    best = None
+    for _ in range(replays):
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        t = start.elapsed_time(end) / reps
+        best = t if best is None else min(best, t)
+    del graph
+    return best
+
+
 def measure(batch=1 << 16, iters=64, reps=5, device="cuda"):
     """Rates at `batch` elements (lanes): a chain of `iters` dependent
     multiplies, and one permutation a variant. The result names the device

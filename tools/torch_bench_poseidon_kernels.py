@@ -9,11 +9,14 @@ port's twin of tools/bench_poseidon_kernels.py.
   mxu=2  poseidon_permute_mma2  the same, two interleaved streams a thread
 
 Each variant is first checked against `permute_plain` (exact), then timed
-with CUDA events at 4,096 / 32,768 / 131,072 lanes, the variants taking turns
-(0, 1, 2, 2, 1, 0) so that a drifting clock does not favour one; then as a
-chain of 32 dependent permutations at 32,768 lanes, which is how the
-verifier's sponges and Merkle walks call it. Prints M permutations/s, one
-JSON line per size. Needs a CUDA device; there is no CPU mode.
+with CUDA events at the lane counts chip_smoke.py times (the ones the
+verifier paths launch the kernels at: 1, 28, 112, 256, 1,024, 28,672,
+114,688), each as the device time of a launch replayed from a CUDA graph,
+the variants taking turns (0, 1, 2, 2, 1, 0) so that a drifting clock does
+not favour one; then as a chain of 32 dependent permutations at
+28,672 lanes, which is how the verifier's sponges and Merkle walks call
+it. Prints ms and M permutations/s, one JSON line per size. Needs a CUDA
+device; there is no CPU mode.
 """
 from __future__ import annotations
 
@@ -31,19 +34,10 @@ import torch  # noqa: E402
 
 from stark_verifier_tpu_torch.ops import gl64  # noqa: E402
 from stark_verifier_tpu_torch.ops import poseidon_kernel as pk  # noqa: E402
+from stark_verifier_tpu_torch.utils.roofline import graph_ms  # noqa: E402
 
-
-def cuda_ms(fn, reps):
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+# the lane counts chip_smoke.py times (its PATH_LANES)
+PATH_LANES = [1, 28, 112, 256, 1024, 28672, 114688]
 
 
 def turns(fns, reps):
@@ -51,7 +45,7 @@ def turns(fns, reps):
     smaller of its two times is kept."""
     best = {}
     for mxu in (0, 1, 2, 2, 1, 0):
-        ms = cuda_ms(fns[mxu], reps)
+        ms = graph_ms(fns[mxu], reps)
         best[mxu] = min(ms, best.get(mxu, ms))
     return best
 
@@ -69,7 +63,7 @@ def main():
           flush=True)
 
     rng = np.random.default_rng(5)
-    for lanes in (4096, 32768, 131072):
+    for lanes in PATH_LANES:
         state = gl64.from_u64(
             rng.integers(0, 2**64, (12, lanes), dtype=np.uint64), "cuda")
         want = pk.permute_plain(state)
@@ -80,11 +74,12 @@ def main():
                    args.reps)
         print(json.dumps({
             "lanes": lanes, "equal_to_plain": True,
+            "poseidon_permute_threads_per_permutation": pk.threads_per_permutation(lanes),
             "ms": {pk.KERNELS[m]: ms[m] for m in ms},
             "M_permutations_per_s": {pk.KERNELS[m]: lanes / ms[m] / 1e3 for m in ms}}),
             flush=True)
 
-    lanes, depth = 32768, 32
+    lanes, depth = 28672, 32
     state = gl64.from_u64(rng.integers(0, 2**64, (12, lanes), dtype=np.uint64), "cuda")
 
     def chained(mxu):

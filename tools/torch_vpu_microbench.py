@@ -68,7 +68,10 @@ MIN_PIPE_SLOTS = {
     "cvt_u32_f32": 2.5,    # two converts + add
     "mul_lo_u64": 3,       # one wide, two narrow multiplies
     "mul_hi_u64": 4,       # four wide multiplies
-    "mad_wide_u32": 1,
+    # IMAD.WIDE.U32 with a zero addend, then the 64-bit add as IADD3 and
+    # half an IADD3.X (two steps' high words share one three-input add):
+    # the loop body this tool prints, 32 + 32 + 16 for 32 steps at ilp 4
+    "mad_wide_u32": 1.75,
 }
 
 
@@ -95,9 +98,11 @@ def smi(query):
 
 def sass_histogram():
     """Machine-instruction counts of every kernel in the probes' library, by
-    opcode with its modifiers (the whole kernel: a loop body unrolled 8
+    opcode with its modifiers: of the whole kernel (a loop body unrolled 8
     times, so about 8 steps a chain, its remainder loop, prologue and
-    epilogue)."""
+    epilogue), and of its longest loop body alone (from a backward branch's
+    target to the branch), which is what a step of the timed chain
+    executes: divide it by 8 x ilp steps."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         return None
@@ -106,17 +111,30 @@ def sass_histogram():
                          text=True, timeout=300)
     if out.returncode != 0:
         return None
-    kernels, name = {}, None
+    listings, name = {}, None
     for line in out.stdout.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = m.group(1)
-            kernels[name] = collections.Counter()
+            listings[name] = []
             continue
-        m = re.match(r"\s+/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\d\s+)?([A-Z][A-Z0-9_.]*)", line)
+        m = re.match(r"\s+/\*([0-9a-f]{4})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
+                     r"\s*([^;]*)", line)
         if m and name:
-            kernels[name][m.group(1)] += 1
-    return {k: dict(v.most_common(8)) for k, v in kernels.items()}
+            listings[name].append((int(m.group(1), 16), m.group(2), m.group(3)))
+    result = {}
+    for k, ins in listings.items():
+        body = []
+        for at, op, args in ins:
+            target = re.match(r"`?\(?\.?L?_?x?_?(?:0x)?([0-9a-f]+)", args.strip())
+            if op == "BRA" and target:
+                dest = int(target.group(1), 16)
+                span = [o for a, o, _ in ins if dest <= a <= at]
+                if dest < at and len(span) > len(body):
+                    body = span
+        result[k] = {"whole": dict(collections.Counter(o for _, o, _ in ins).most_common(8)),
+                     "loop_body": dict(collections.Counter(body).most_common())}
+    return result
 
 
 def main():
