@@ -162,8 +162,11 @@ BRIDGE_INT32_INSTR_PER_PERMUTATION = (
     756 * 128 + 100 * (2 * 92 + 128) + 4 * 12 * 8
     + (344 + 300 + 4 + 4) * 156 + (240 + 100) * 8 + 168 + 732)
 
-# machine instructions of one mad_wide_u32 step of alu_probe (phase_probes)
-MAD_WIDE_STEP_INSTRUCTIONS = 2.5
+# 32-bit integer instructions one mad_wide_u32 step of alu_probe needs at
+# the least (phase_probes): y = lo32(y) * x + y is one IMAD.WIDE.U32 with the
+# 64-bit y as its addend. tools/torch_vpu_microbench.py counts by the same
+# rule (MIN_PIPE_SLOTS).
+MAD_WIDE_STEP_INSTRUCTIONS = 1
 
 KERNEL_FILES = {
     "poseidon_permute": ("stark_verifier_tpu_torch/ops/csrc/poseidon_gl.cu",
@@ -446,12 +449,12 @@ def phase_probes(device, rows):
           and not any(bk.LAUNCHES.values()),
           "the probes' path launched a Poseidon kernel")
 
-    # a mad_wide_u32 step is 2.5 machine instructions: IMAD.WIDE.U32 with a
-    # zero addend, the 64-bit add as IADD3 and half an IADD3.X (two steps'
-    # high words share one three-input add) -- the loop body of the ilp-4
-    # kernel holds 32 + 32 + 16 of them for 32 steps (cuobjdump -sass of the
-    # built library, printed by tools/torch_vpu_microbench.py), each counted
-    # at the 32-bit integer rate like every instruction of the bounds here
+    # the least a step needs, one IMAD.WIDE.U32, at the 32-bit integer rate
+    # like every instruction of the bounds here; the built kernel executes
+    # 2.5 a step (cuobjdump -sass of the library, printed by
+    # tools/torch_vpu_microbench.py: IMAD.WIDE.U32 with a zero addend, the
+    # 64-bit add as IADD3 and half an IADD3.X, 32 + 32 + 16 for 32 steps in
+    # the ilp-4 loop body), which is its gap to the bound
     ops = n * chain * 4 * MAD_WIDE_STEP_INSTRUCTIONS
     rows["alu_probe"] = kernel_row(
         "alu_probe", per_op[f"{row_op}, ilp=4"]["ms"], alu_plain_ms[row_op, 4],

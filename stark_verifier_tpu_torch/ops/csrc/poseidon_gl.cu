@@ -41,44 +41,42 @@
 //     layer). In a partial round every thread of a group computes the s-box
 //     of word 0 itself: no divergence and no broadcast, and the products of
 //     words 1..11 of its row run while the s-box's chain does; a row is two
-//     chains of multiply-adds, not one. Each block first copies the
-//     constant tables into shared memory (TABLES), since a round's first
-//     read of __constant__ memory misses its cache. A lane count that is not
-//     a multiple of two is masked per permutation: the group past the end
+//     chains of multiply-adds, not one. A lane count that is not a
+//     multiple of two is masked per permutation: the group past the end
 //     takes lane 0's words through every layer and stores nothing;
+//   * both grids: each block first copies the constant tables into shared
+//     memory (TABLES), since a round's first read of __constant__ memory
+//     misses its cache, and the twelve threads of a group read twelve
+//     addresses, which constant memory serves one at a time (read from
+//     __constant__ memory, the narrow grid is 7-8 % slower and the wide
+//     one within 1 %: tools/torch_poseidon_alternatives.py, `cmem`);
 //   * native 64-bit arithmetic (goldilocks.cuh): lo = a * b, hi =
 //     __umul64hi(a, b), one Goldilocks fold; an MDS row's multiply-adds as
 //     inline mad.wide.u32, its fold and a round constant's add in the
-//     shorter forms their operands' ranges allow (fold_row, add_const);
-//   * the wide grid reads its round constants from __constant__ memory,
-//     where a warp's uniform read is a broadcast.
+//     shorter forms their operands' ranges allow (fold_row, add_const).
 //
 // Plain C interface (loaded with ctypes): no PyTorch headers, launches on
 // the stream it is given, allocates nothing, returns cudaGetLastError().
 #include "goldilocks.cuh"
 
 #define LANE_THREADS 128     // block of the one-thread-a-permutation grid
-#define SPLIT_THREADS 32     // block of the SPLIT-threads-a-permutation grid
+#define SPLIT_THREADS 32     // block of the twelve-threads-a-permutation grid
 #define SPLIT 12             // threads a permutation in the narrow grid
-#define SPLIT_WORDS (WIDTH / SPLIT)          // words (and MDS rows) a thread
-// a permutation's group of threads: SPLIT rounded up to a power of two
-#define SPLIT_GROUP (SPLIT <= 2 ? 2 : SPLIT <= 4 ? 4 : SPLIT <= 8 ? 8 : 16)
+#define SPLIT_GROUP 16       // threads of a warp a permutation takes
 #define SPLIT_PERMS (32 / SPLIT_GROUP)       // permutations a warp
 #define SPLIT_WARPS (SPLIT_THREADS / 32)
-static_assert(WIDTH % SPLIT == 0, "SPLIT must divide the width");
+static_assert(SPLIT == WIDTH, "the narrow grid gives each thread one word");
 
-// plonky2's forwarded partial-round constants: FAST_PARTIAL_FIRST_ROUND_
-// CONSTANT (12 words, added before the first partial round), then
+// The constant tables, one after the other: the 30 x 12 round constants
+// (the kernels read the full rounds' rows 0..3 and 26..29), then plonky2's
+// forwarded partial-round constants, FAST_PARTIAL_FIRST_ROUND_CONSTANT (12
+// words, added before the first partial round) and
 // FAST_PARTIAL_ROUND_CONSTANTS (22, one a partial round, added to word 0
-// after the s-box; the last is 0)
-__constant__ u64 PARTIAL_CONSTANTS[WIDTH + N_PARTIAL];
-
-// Both tables again in global memory, one after the other, for the narrow
-// grid: each of its blocks copies them into shared memory with one
-// coalesced load a thread and word, so that no round waits on a constant
-// fetched from L2. Constant memory serves a warp's reads one address at a
-// time, and a round's first read misses its cache.
-#define TABLE_WORDS (N_ROUNDS * WIDTH + WIDTH + N_PARTIAL)
+// after the s-box; the last is 0). Each block copies them into shared
+// memory with one coalesced load a thread and word before its rounds
+// start, so that no round waits on a constant fetched from L2.
+#define PARTIAL_AT (N_ROUNDS * WIDTH)
+#define TABLE_WORDS (PARTIAL_AT + WIDTH + N_PARTIAL)
 __device__ u64 TABLES[TABLE_WORDS];
 
 // the MDS matrix: circulant first row and the diagonal's one nonzero entry
@@ -154,16 +152,17 @@ __device__ __forceinline__ void mds_layer(u64 (&s)[WIDTH]) {
     }
 }
 
-__device__ __forceinline__ void full_round(u64 (&s)[WIDTH], int r) {
+__device__ __forceinline__ void full_round(u64 (&s)[WIDTH], const u64* tables, int r) {
 #pragma unroll
     for (int j = 0; j < WIDTH; ++j)
-        s[j] = sbox7(add_const(s[j], ROUND_CONSTANTS[r * WIDTH + j]));
+        s[j] = sbox7(add_const(s[j], tables[r * WIDTH + j]));
     mds_layer(s);
 }
 
 // ------------------------------------------- one thread a permutation
 __device__ __forceinline__ void permute_lane(const u64* __restrict__ in,
-                                             u64* __restrict__ out, long long L) {
+                                             u64* __restrict__ out, long long L,
+                                             const u64* tables) {
     long long i = (long long)blockIdx.x * LANE_THREADS + threadIdx.x;
     if (i >= L) return;
     u64 s[WIDTH];
@@ -171,76 +170,53 @@ __device__ __forceinline__ void permute_lane(const u64* __restrict__ in,
     for (int j = 0; j < WIDTH; ++j) s[j] = in[j * L + i];
 
 #pragma unroll 1
-    for (int r = 0; r < HALF_FULL; ++r) full_round(s, r);
+    for (int r = 0; r < HALF_FULL; ++r) full_round(s, tables, r);
 #pragma unroll
-    for (int j = 0; j < WIDTH; ++j) s[j] = add_const(s[j], PARTIAL_CONSTANTS[j]);
+    for (int j = 0; j < WIDTH; ++j) s[j] = add_const(s[j], tables[PARTIAL_AT + j]);
 #pragma unroll 1
     for (int r = 0; r < N_PARTIAL; ++r) {
-        s[0] = add_const(sbox7(s[0]), PARTIAL_CONSTANTS[WIDTH + r]);
+        s[0] = add_const(sbox7(s[0]), tables[PARTIAL_AT + WIDTH + r]);
         mds_layer(s);
     }
 #pragma unroll 1
-    for (int r = HALF_FULL + N_PARTIAL; r < N_ROUNDS; ++r) full_round(s, r);
+    for (int r = HALF_FULL + N_PARTIAL; r < N_ROUNDS; ++r) full_round(s, tables, r);
 #pragma unroll
     for (int j = 0; j < WIDTH; ++j) out[j * L + i] = canonical(s[j]);
 }
 
-// ------------------------------------------- SPLIT threads a permutation
-// A group of SPLIT_GROUP threads (SPLIT rounded up to a power of two) takes
-// one permutation; thread q < SPLIT of it owns words and rows q + SPLIT * k,
-// k < WIDTH / SPLIT, and the threads above SPLIT, if any, own nothing: they
-// run along (the warp syncs as one) and write nothing.
+// ------------------------------------------- twelve threads a permutation
+// A group of SPLIT_GROUP = 16 threads takes one permutation; thread q < 12
+// of it owns word q and MDS row q, and the four threads above 12 own
+// nothing: they run along (the warp syncs as one) and write nothing.
 //
-// Row q + SPLIT * k, for the thread q that owns it: its coefficient of word
-// j is CIRC[(j - q - SPLIT * k) mod 12], which is m[(j - SPLIT * k) mod 12]
-// for the thread's row-q coefficients m[j] = CIRC[(j - q) mod 12] (loaded
-// once), so the rotation is an index known at compile time. The diagonal
-// entry (8, row 0 only) comes in as d0 = 8 on thread 0's first row, else 0.
-template <int SHIFT>
+// Row q's coefficient of word j is m[j] = CIRC[(j - q) mod 12], loaded once;
+// the diagonal entry (8, row 0 only) comes in as d0 = 8 on thread 0, else 0.
+// Two running sums a half, over the even and the odd words: half the chain
+// of dependent multiply-adds, and each sum still below 2^41 (mds_layer).
 __device__ __forceinline__ u64 split_row(const u32 (&m)[WIDTH], u32 d0,
                                          const u32 (&lo)[WIDTH],
                                          const u32 (&hi)[WIDTH]) {
-    // two running sums a half, over the even and the odd words: half the
-    // chain of dependent multiply-adds, and each sum still below 2^41
     u64 sum_lo[2] = {0, 0}, sum_hi[2] = {0, 0};
 #pragma unroll
     for (int j = 0; j < WIDTH; ++j) {
-        const u32 c = m[(j - SHIFT + WIDTH) % WIDTH];
-        mad_wide(sum_lo[j % 2], lo[j], c);
-        mad_wide(sum_hi[j % 2], hi[j], c);
+        mad_wide(sum_lo[j % 2], lo[j], m[j]);
+        mad_wide(sum_hi[j % 2], hi[j], m[j]);
     }
-    if (SHIFT == 0) {
-        mad_wide(sum_lo[1], lo[0], d0);
-        mad_wide(sum_hi[1], hi[0], d0);
-    }
+    mad_wide(sum_lo[1], lo[0], d0);
+    mad_wide(sum_hi[1], hi[0], d0);
     return fold_row(sum_lo[0] + sum_lo[1], sum_hi[0] + sum_hi[1]);
-}
-
-template <int K = 0>
-__device__ __forceinline__ void split_rows(u64 (&mine)[SPLIT_WORDS],
-                                           const u32 (&m)[WIDTH], u32 d0,
-                                           const u32 (&lo)[WIDTH],
-                                           const u32 (&hi)[WIDTH]) {
-    if constexpr (K < SPLIT_WORDS) {
-        mine[K] = split_row<SPLIT * K>(m, d0, lo, hi);
-        split_rows<K + 1>(mine, m, d0, lo, hi);
-    }
 }
 
 // The group's 12 words into every thread of it: each owner writes its
 // own, the warp syncs, each thread reads all twelve. Two buffers alternate,
 // so a buffer is written again only after a later __syncwarp, which every
 // thread passes after it has read it.
-__device__ __forceinline__ void split_exchange(u64 (*stage)[WIDTH], int q, bool owner,
-                                               const u64 (&mine)[SPLIT_WORDS],
-                                               u32 (&lo)[WIDTH], u32 (&hi)[WIDTH],
-                                               u64& w0) {
-    if (owner) {
-#pragma unroll
-        for (int k = 0; k < SPLIT_WORDS; ++k) (*stage)[q + SPLIT * k] = mine[k];
-    }
+__device__ __forceinline__ void split_exchange(u64 (&stage)[WIDTH], bool owner, int q,
+                                               u64 mine, u32 (&lo)[WIDTH],
+                                               u32 (&hi)[WIDTH], u64& w0) {
+    if (owner) stage[q] = mine;
     __syncwarp();
-    const ulonglong2* row = reinterpret_cast<const ulonglong2*>(*stage);
+    const ulonglong2* row = reinterpret_cast<const ulonglong2*>(stage);
 #pragma unroll
     for (int j = 0; j < WIDTH / 2; ++j) {
         ulonglong2 v = row[j];
@@ -252,26 +228,10 @@ __device__ __forceinline__ void split_exchange(u64 (*stage)[WIDTH], int q, bool 
     }
 }
 
-// Round constant i of the block's copy of TABLES: the 30 x 12 round
-// constants, then the forwarded partial-round ones.
-__device__ __forceinline__ u64 split_constant(const u64* tables, int i) {
-    return tables[i];
-}
-
-__device__ __forceinline__ void split_full_round(u64 (&mine)[SPLIT_WORDS],
-                                                 const u64* tables, int q, int r) {
-#pragma unroll
-    for (int k = 0; k < SPLIT_WORDS; ++k)
-        mine[k] = sbox7(add_const(mine[k],
-                                  split_constant(tables, r * WIDTH + q + SPLIT * k)));
-}
-
 __device__ __forceinline__ void permute_split(const u64* __restrict__ in,
-                                              u64* __restrict__ out, long long L) {
+                                              u64* __restrict__ out, long long L,
+                                              const u64* tables) {
     __shared__ __align__(16) u64 stage[SPLIT_WARPS][2][SPLIT_PERMS][WIDTH];
-    __shared__ u64 tables[TABLE_WORDS];
-    for (int i = threadIdx.x; i < TABLE_WORDS; i += SPLIT_THREADS) tables[i] = TABLES[i];
-    __syncthreads();
     const int warp = threadIdx.x / 32, lw = threadIdx.x % 32;
     const int g = lw / SPLIT_GROUP;
     const bool owner = lw % SPLIT_GROUP < SPLIT;
@@ -286,76 +246,67 @@ __device__ __forceinline__ void permute_split(const u64* __restrict__ in,
     for (int j = 0; j < WIDTH; ++j) m[j] = CIRC_TABLE[(j - q + WIDTH) % WIDTH];
     const u32 d0 = (q == 0) ? DIAG0 : 0;
 
-    u64 mine[SPLIT_WORDS];
-#pragma unroll
-    for (int k = 0; k < SPLIT_WORDS; ++k) mine[k] = in[(q + SPLIT * k) * L + at];
+    u64 mine = in[q * L + at];
     u32 lo[WIDTH], hi[WIDTH];
     u64 w0;
     int b = 0;
 
 #pragma unroll 1
     for (int r = 0; r < HALF_FULL; ++r) {
-        split_full_round(mine, tables, q, r);
-        split_exchange(&stage[warp][b][g], q, owner, mine, lo, hi, w0);
+        mine = sbox7(add_const(mine, tables[r * WIDTH + q]));
+        split_exchange(stage[warp][b][g], owner, q, mine, lo, hi, w0);
         b ^= 1;
-        split_rows(mine, m, d0, lo, hi);
+        mine = split_row(m, d0, lo, hi);
     }
-#pragma unroll
-    for (int k = 0; k < SPLIT_WORDS; ++k)
-        mine[k] = add_const(mine[k],
-                            split_constant(tables, N_ROUNDS * WIDTH + q + SPLIT * k));
+    mine = add_const(mine, tables[PARTIAL_AT + q]);
 #pragma unroll 1
     for (int r = 0; r < N_PARTIAL; ++r) {
-        split_exchange(&stage[warp][b][g], q, owner, mine, lo, hi, w0);
+        split_exchange(stage[warp][b][g], owner, q, mine, lo, hi, w0);
         b ^= 1;
-        // every thread of the group: the s-box of word 0, then its rows
-        w0 = add_const(sbox7(w0),
-                       split_constant(tables, N_ROUNDS * WIDTH + WIDTH + r));
+        // every thread of the group: the s-box of word 0, then its row
+        w0 = add_const(sbox7(w0), tables[PARTIAL_AT + WIDTH + r]);
         lo[0] = (u32)w0;
         hi[0] = (u32)(w0 >> 32);
-        split_rows(mine, m, d0, lo, hi);
+        mine = split_row(m, d0, lo, hi);
     }
 #pragma unroll 1
     for (int r = HALF_FULL + N_PARTIAL; r < N_ROUNDS; ++r) {
-        split_full_round(mine, tables, q, r);
-        split_exchange(&stage[warp][b][g], q, owner, mine, lo, hi, w0);
+        mine = sbox7(add_const(mine, tables[r * WIDTH + q]));
+        split_exchange(stage[warp][b][g], owner, q, mine, lo, hi, w0);
         b ^= 1;
-        split_rows(mine, m, d0, lo, hi);
+        mine = split_row(m, d0, lo, hi);
     }
-    if (live && owner) {
-#pragma unroll
-        for (int k = 0; k < SPLIT_WORDS; ++k)
-            out[(q + SPLIT * k) * L + lane] = canonical(mine[k]);
-    }
+    if (live && owner) out[q * L + lane] = canonical(mine);
 }
 
 // THREADS_PER_PERM 1: the wide grid; SPLIT: the narrow one.
+// The copy of the tables steps by the block's size as a compile-time
+// constant: stepping by blockDim.x made the narrow grid 11-15 % slower at 1
+// to 1,024 lanes (tools/torch_poseidon_alternatives.py, `dyncopy`).
 template <int THREADS_PER_PERM>
 __global__ void __launch_bounds__(THREADS_PER_PERM == 1 ? LANE_THREADS : SPLIT_THREADS)
 poseidon_permute_kernel(const u64* __restrict__ in, u64* __restrict__ out,
                         long long L) {
-    if constexpr (THREADS_PER_PERM == 1) permute_lane(in, out, L);
-    else permute_split(in, out, L);
+    constexpr int THREADS = THREADS_PER_PERM == 1 ? LANE_THREADS : SPLIT_THREADS;
+    __shared__ u64 tables[TABLE_WORDS];
+    for (int i = threadIdx.x; i < TABLE_WORDS; i += THREADS) tables[i] = TABLES[i];
+    __syncthreads();
+    if constexpr (THREADS_PER_PERM == 1) permute_lane(in, out, L, tables);
+    else permute_split(in, out, L, tables);
 }
 
 extern "C" {
 
-// Copies the 30 x 12 round constants (host memory) into __constant__ memory
-// and into TABLES; the kernels read the full rounds' rows (0..3, 26..29).
+// Copies the 30 x 12 round constants (host memory) into TABLES.
 int poseidon_set_round_constants(const void* host_u64) {
-    int err = set_round_constants(host_u64);
-    if (err) return err;
-    return (int)cudaMemcpyToSymbol(TABLES, host_u64, sizeof(u64) * N_ROUNDS * WIDTH);
+    return (int)cudaMemcpyToSymbol(TABLES, host_u64, sizeof(u64) * PARTIAL_AT);
 }
 
 // Copies the 12 + 22 forwarded partial-round constants (host memory) into
-// __constant__ memory and into TABLES.
+// TABLES, after the round constants.
 int poseidon_set_partial_constants(const void* host_u64) {
-    int err = (int)cudaMemcpyToSymbol(PARTIAL_CONSTANTS, host_u64,
-                                      sizeof(u64) * (WIDTH + N_PARTIAL));
-    if (err) return err;
     return (int)cudaMemcpyToSymbol(TABLES, host_u64, sizeof(u64) * (WIDTH + N_PARTIAL),
-                                   sizeof(u64) * N_ROUNDS * WIDTH);
+                                   sizeof(u64) * PARTIAL_AT);
 }
 
 // in, out: device pointers to two distinct contiguous u64[12, L] buffers;

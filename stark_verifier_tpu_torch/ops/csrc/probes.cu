@@ -23,10 +23,12 @@
 // instructions in the built library where cuobjdump is there: the assembler
 // still picks the machine code, and merges two add.u32 steps into one
 // three-input add, so OP_ADD_U32 times the step and not one add). A
-// mad_wide_u32 step is 2.5 machine instructions: IMAD.WIDE.U32 with a zero
-// addend, the 64-bit add as IADD3 and half an IADD3.X, two steps' high
-// words sharing one three-input add (the ilp-4 loop body: 32 + 32 + 16 for
-// 32 steps, and 3 of loop overhead). With ilp = 1 a thread runs one
+// mad_wide_u32 step compiles to 2.5 machine instructions: IMAD.WIDE.U32 with
+// a zero addend, the 64-bit add as IADD3 and half an IADD3.X, two steps'
+// high words sharing one three-input add (the ilp-4 loop body: 32 + 32 + 16
+// for 32 steps, and 3 of loop overhead), where one IMAD.WIDE.U32 with the
+// 64-bit y as its addend would do; the bound (chip_smoke.py) counts that
+// one. With ilp = 1 a thread runs one
 // dependent chain (latency shows); with ilp = 4 it runs four independent
 // ones (throughput shows).
 //

@@ -83,8 +83,8 @@ def _use_mxu() -> int:
 
 def _library(name: str):
     """Build (at first use) and load the library `name`, bind its C
-    signatures and upload the round constants (constant memory is per
-    library)."""
+    signatures and upload its constant tables (a library's device memory
+    is its own)."""
     lib = _ready.get(name)
     if lib is None:
         from . import cuda_build
@@ -269,48 +269,46 @@ def _fold_row(sum_lo: int, sum_hi: int) -> int:
     return r
 
 
-def _mds_row(coeffs, words) -> int:
-    """One MDS row on the 32-bit halves, each half's sum in a u64."""
-    sum_lo = sum(c * (w & _EPS) for c, w in zip(coeffs, words))
-    sum_hi = sum(c * (w >> 32) for c, w in zip(coeffs, words))
-    return _fold_row(sum_lo, sum_hi)
+def _mds_row(coeffs, words, chains: int = 1, diag: int = 0) -> int:
+    """One MDS row on the 32-bit halves, each half's sum in a u64: in one
+    chain (the wide grid), or in two over the even and the odd words (the
+    narrow grid), the diagonal entry's product of word 0 added to the last
+    chain, the chains added before the fold."""
+    def half(shift):
+        sums = [0] * chains
+        for j, (c, w) in enumerate(zip(coeffs, words)):
+            sums[j % chains] += c * ((w >> shift) & _EPS)
+        sums[-1] += diag * ((words[0] >> shift) & _EPS)
+        _bound(all(v < 1 << 41 for v in sums), "an MDS row's chain at or above 2^41")
+        return sum(sums)
+    return _fold_row(half(0), half(32))
 
 
-def _row_coeffs(r: int, threads_per_perm: int):
-    """Row r's coefficients as the kernel forms them: with one thread, as
-    CIRC rotated by r (+8 on word 0 of row 0); with K threads, as thread
-    q = r % K forms its row q + K * k from its row-q coefficients
-    m[j] = CIRC[(j - q) % 12], rotated by K * k, and d0 = 8 on thread 0's
-    first row."""
-    if threads_per_perm == 1:
-        c = [_CIRC[(j - r) % 12] for j in range(12)]
-        if r == 0:
-            c[0] += _DIAG0
-        return c
-    q, k = r % threads_per_perm, r // threads_per_perm
-    m = [_CIRC[(j - q) % 12] for j in range(12)]
-    c = [m[(j - threads_per_perm * k) % 12] for j in range(12)]
-    if k == 0:
-        c[0] += _DIAG0 if q == 0 else 0
-    return c
+def _row_coeffs(r: int):
+    """Row r's circulant coefficients as the kernel forms them, CIRC
+    rotated by r (the narrow grid's thread q = r loads them as
+    m[j] = CIRC[(j - q) % 12]); row 0 also has the diagonal entry 8 on
+    word 0, which both grids add as one more multiply-add."""
+    return [_CIRC[(j - r) % 12] for j in range(12)]
 
 
 def schedule_permute_ints(state, threads_per_perm: int = 1) -> list:
     """The permutation as `poseidon_permute` computes it, on 12 python ints
     in [0, 2^64) (any representative); canonical output. `threads_per_perm`
-    1 is the wide grid, SPLIT the narrow one (any divisor of 12 is a grid
-    the source builds): the same values, the MDS rows formed as each grid
-    forms them."""
-    if threads_per_perm not in (1, 2, 3, 4, 6, 12):
-        raise ValueError(f"threads_per_perm must divide 12, got {threads_per_perm}")
+    1 is the wide grid, SPLIT the narrow one: the same values, each MDS row
+    summed as each grid sums it."""
+    if threads_per_perm not in (1, SPLIT):
+        raise ValueError(f"threads_per_perm must be 1 or {SPLIT}, got {threads_per_perm}")
     s = [int(v) for v in state]
     if len(s) != WIDTH or not all(0 <= v <= _U64 for v in s):
         raise ValueError("state must be 12 integers in [0, 2^64)")
     rc, partial = (t.tolist() for t in schedule_tables())
-    rows = [_row_coeffs(r, threads_per_perm) for r in range(WIDTH)]
+    rows = [_row_coeffs(r) for r in range(WIDTH)]
+    chains = 1 if threads_per_perm == 1 else 2
 
     def mds(words):
-        return [_mds_row(rows[r], words) for r in range(WIDTH)]
+        return [_mds_row(rows[r], words, chains, _DIAG0 if r == 0 else 0)
+                for r in range(WIDTH)]
 
     def full_round(words, r):
         return mds([_sbox7(_add_const(w, rc[r * WIDTH + j])) for j, w in enumerate(words)])

@@ -2,8 +2,8 @@
 (ops/poseidon_kernel: schedule_tables, schedule_permute_ints,
 threads_per_permutation). csrc/poseidon_gl.cu runs the partial rounds with
 plonky2's forwarded constants and, for narrow calls, spreads a permutation
-over SPLIT threads that each form their MDS rows from rotated
-coefficients.
+over SPLIT = 12 threads that each form one MDS row from rotated
+coefficients, in two chains of multiply-adds.
 The host model runs that schedule on python ints, for both grids, with the
 kernel's tables and order of operations, and asserts the value bounds the
 kernel relies on; here it is held against `permute_plain`, the JAX
@@ -62,18 +62,18 @@ def reference():
     return plain
 
 
-@pytest.mark.parametrize("threads_per_perm", [1, 4, 6, 12])
-@pytest.mark.parametrize("part", range(4))
+@pytest.mark.parametrize("threads_per_perm", [1, pk.SPLIT])
+@pytest.mark.parametrize("part", range(8))
 def test_schedule_equals_plain_and_golden(reference, threads_per_perm, part):
-    """Every state, in four parts, through each grid's schedule."""
+    """Every state, in eight parts, through each grid's schedule."""
     n = STATES.shape[1]
-    for lane in range(part, n, 4):
+    for lane in range(part, n, 8):
         got = pk.schedule_permute_ints(STATES[:, lane].tolist(), threads_per_perm)
         assert got == [int(v) for v in reference[:, lane]], lane
 
 
 @pytest.mark.parametrize("ins,expected", PLONKY2_TEST_VECTORS_12)
-@pytest.mark.parametrize("threads_per_perm", [1, 2, 3, 4, 6, 12])
+@pytest.mark.parametrize("threads_per_perm", [1, pk.SPLIT])
 def test_schedule_plonky2_published_vectors(threads_per_perm, ins, expected):
     assert pk.schedule_permute_ints(ins, threads_per_perm) == expected
 
@@ -93,7 +93,12 @@ def test_tables_are_the_ports_constants():
 
 def test_kernel_source_declares_the_tables_the_model_uses():
     src = SOURCE.read_text()
-    assert re.search(r"__constant__ u64 PARTIAL_CONSTANTS\[WIDTH \+ N_PARTIAL\]", src)
+    # one table, the round constants and then the forwarded ones, as the
+    # two uploads write it
+    assert re.search(r"#define PARTIAL_AT \(N_ROUNDS \* WIDTH\)", src)
+    assert re.search(r"#define TABLE_WORDS \(PARTIAL_AT \+ WIDTH \+ N_PARTIAL\)", src)
+    assert re.search(r"^__device__ u64 TABLES\[TABLE_WORDS\];", src, re.M)
+    assert "__constant__ u64" not in src
     m = re.search(r"#define MDS_CIRC \{([^}]*)\}", src)
     assert m and tuple(int(v) for v in m.group(1).split(",")) == pk._CIRC
     assert re.search(r"__constant__ u32 CIRC_TABLE\[WIDTH\] = MDS_CIRC;", src)
@@ -104,12 +109,22 @@ def test_kernel_source_declares_the_tables_the_model_uses():
     assert m and int(m.group(1)) == pk.SPLIT
 
 
-@pytest.mark.parametrize("threads_per_perm", [1, 2, 3, 4, 6, 12])
-def test_row_coefficients_are_the_mds_matrix(threads_per_perm):
-    """Each grid's rotated coefficients give every row of the dense
-    matrix, each row formed by exactly one thread."""
+@pytest.mark.parametrize("row", range(12))
+def test_row_coefficients_are_the_mds_matrix(row):
+    """The rotated coefficients and the diagonal entry give the dense
+    matrix's row, in either grid's chains: word j alone, at 1 and at
+    2^32 + 1, comes out as the matrix entry times it."""
     mds = gl64._mds12_matrix().tolist()
-    assert [pk._row_coeffs(r, threads_per_perm) for r in range(12)] == mds
+    diag = pk._DIAG0 if row == 0 else 0
+    assert [c + (diag if j == 0 else 0) for j, c in enumerate(pk._row_coeffs(row))] \
+        == mds[row]
+    for chains in (1, 2):
+        for j in range(12):
+            for v in (1, 2**32 + 1):
+                words = [0] * 12
+                words[j] = v
+                assert pk._mds_row(pk._row_coeffs(row), words, chains, diag) \
+                    == mds[row][j] * v
 
 
 @pytest.mark.parametrize("lanes,threads", [
@@ -117,14 +132,15 @@ def test_row_coefficients_are_the_mds_matrix(threads_per_perm):
     (pk.SPLIT_MAX_LANES, pk.SPLIT),
     (pk.SPLIT_MAX_LANES + 1, 1), (28 * 1024, 1), (4 * 28 * 1024, 1)])
 def test_grid_by_lane_count(lanes, threads):
-    """The transcript's and one proof's calls take the four-thread grid, a
+    """The transcript's and one proof's calls take the twelve-thread grid, a
     batch's leaf hashes and walks the one-thread grid."""
     assert pk.threads_per_permutation(lanes) == threads
 
 
 @pytest.mark.parametrize("case", [
     "add_const_operand", "add_const_constant", "reduce128_operand",
-    "fold_row_partial_sum", "mds_row_sum", "threads_per_perm", "state"])
+    "fold_row_partial_sum", "mds_row_sum", "mds_row_two_chains", "threads_per_perm",
+    "state"])
 def test_bounds_are_enforced(case):
     """Each bound the model asserts raises when it is passed."""
     with pytest.raises((ArithmeticError, ValueError)):
@@ -138,8 +154,10 @@ def test_bounds_are_enforced(case):
             pk._fold_row(1 << 41, 0)
         elif case == "mds_row_sum":
             pk._mds_row([1 << 10] * 12, [2**64 - 1] * 12)
+        elif case == "mds_row_two_chains":
+            pk._mds_row([1 << 10] * 12, [2**64 - 1] * 12, 2, pk._DIAG0)
         elif case == "threads_per_perm":
-            pk.schedule_permute_ints([0] * 12, 5)
+            pk.schedule_permute_ints([0] * 12, 4)
         else:
             pk.schedule_permute_ints([1 << 64] + [0] * 11)
 
@@ -160,6 +178,10 @@ def test_bounds_hold_with_room_at_the_extremes():
     assert all(int(c) < P for c in rc) and all(int(c) < P for c in partial)
     assert pk._reduce128(top, top) % P == (top * 2**64 + top) % P
     assert pk._mds_row([264] + [0] * 11, [top] + [0] * 11) % P == (264 * top) % P
+    # row 0 at the largest words, in one chain and in the narrow grid's two
+    for chains in (1, 2):
+        assert pk._mds_row(pk._row_coeffs(0), [top] * 12, chains, pk._DIAG0) % P \
+            == (264 * top) % P
 
 
 class _FakeFunction:

@@ -16,9 +16,10 @@ Builds, each from ops/csrc/poseidon_gl.cu with nvcc into build/:
             folded by the general 128-bit fold;
   lane64    the one-thread grid in 64-thread blocks;
   split64   the narrow grid in 64-thread blocks (two warps);
-  split4    four threads a permutation (three words and rows each, eight
-            permutations a warp);
-  split6    six threads a permutation (two each, groups of eight threads);
+  splitk    four or six threads a permutation (three words and MDS rows
+            a thread and eight permutations a warp, or two a thread in
+            groups of eight threads), the narrow grid written for K words
+            a thread;
   sparse4   four threads a permutation with the partial rounds in
             plonky2's sparse form (FAST_PARTIAL_ROUND_INITIAL_MATRIX once,
             then per round one dot product with the 11 constants w-hat and
@@ -28,10 +29,12 @@ Builds, each from ops/csrc/poseidon_gl.cu with nvcc into build/:
             lazily in 160 bits and reduced once;
   cmad      both grids with the MDS rows' multiply-adds written as C,
             (u64)a * b into a u64, instead of the inline mad.wide.u32;
-  cmem      the narrow grid reading its round constants from __constant__
+  cmem      both grids reading their constant tables from __constant__
             memory, not from the block's copy in shared memory;
   onesum    the narrow grid summing each half of an MDS row in one chain,
             not two;
+  dyncopy   both grids copying the tables into shared memory in steps of
+            blockDim.x, the block's size at run time, not at compile time;
   o1        both grids built with ptxas at -O1.
 
 Every build and grid, and the two tensor-core kernels (mxu=1, 2, through
@@ -56,7 +59,6 @@ import collections
 import ctypes
 import json
 import re
-import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -70,6 +72,7 @@ import torch  # noqa: E402
 from stark_verifier_tpu_torch.ops import _poseidon_gl_constants as tconst  # noqa: E402
 from stark_verifier_tpu_torch.ops import cuda_build, gl64  # noqa: E402
 from stark_verifier_tpu_torch.ops import poseidon_kernel as pk  # noqa: E402
+from stark_verifier_tpu_torch.utils import sass  # noqa: E402
 from stark_verifier_tpu_torch.utils.roofline import graph_ms  # noqa: E402
 
 PATH_LANES = [1, 28, 112, 256, 1024, 28672, 114688]
@@ -134,6 +137,12 @@ poseidon_dense_kernel(const u64* __restrict__ in, u64* __restrict__ out,
     for (int j = 0; j < WIDTH; ++j) out[j * L + i] = canonical(s[j]);
 }
 
+// add_round_constants reads goldilocks.cuh's ROUND_CONSTANTS, which the kept
+// kernel does not use
+extern "C" int poseidon_dense_set_round_constants(const void* host_u64) {
+    return set_round_constants(host_u64);
+}
+
 extern "C" int poseidon_dense(const void* in, void* out, long long L,
                               int threads_per_perm, void* stream) {
     if (L <= 0) return 0;
@@ -143,9 +152,157 @@ extern "C" int poseidon_dense(const void* in, void* out, long long L,
 }
 '''
 
+SPLITK = r'''
+// ---- K threads a permutation, K = 4 or 6: WIDTH / K words and MDS rows a
+// thread (tools/torch_poseidon_alternatives.py). A group of threads is K
+// rounded up to a power of two; thread q < K of it owns words and rows
+// q + K * k, the others run along and write nothing. Row q + K * k's
+// coefficient of word j is m[(j - K * k) mod 12] for the thread's row-q
+// coefficients m[j] = CIRC[(j - q) mod 12].
+template <int K> struct SplitK {
+    static constexpr int WORDS = WIDTH / K;
+    static constexpr int GROUP = K <= 4 ? 4 : 8;
+    static constexpr int PERMS = 32 / GROUP;
+};
+
+template <int SHIFT>
+__device__ __forceinline__ u64 splitk_row(const u32 (&m)[WIDTH], u32 d0,
+                                          const u32 (&lo)[WIDTH],
+                                          const u32 (&hi)[WIDTH]) {
+    u64 sum_lo[2] = {0, 0}, sum_hi[2] = {0, 0};
+#pragma unroll
+    for (int j = 0; j < WIDTH; ++j) {
+        const u32 c = m[(j - SHIFT + WIDTH) % WIDTH];
+        mad_wide(sum_lo[j % 2], lo[j], c);
+        mad_wide(sum_hi[j % 2], hi[j], c);
+    }
+    if (SHIFT == 0) {
+        mad_wide(sum_lo[1], lo[0], d0);
+        mad_wide(sum_hi[1], hi[0], d0);
+    }
+    return fold_row(sum_lo[0] + sum_lo[1], sum_hi[0] + sum_hi[1]);
+}
+
+template <int K, int I = 0>
+__device__ __forceinline__ void splitk_rows(u64 (&mine)[WIDTH / K],
+                                            const u32 (&m)[WIDTH], u32 d0,
+                                            const u32 (&lo)[WIDTH],
+                                            const u32 (&hi)[WIDTH]) {
+    if constexpr (I < WIDTH / K) {
+        mine[I] = splitk_row<K * I>(m, d0, lo, hi);
+        splitk_rows<K, I + 1>(mine, m, d0, lo, hi);
+    }
+}
+
+template <int K>
+__device__ __forceinline__ void splitk_exchange(u64 (&stage)[WIDTH], int q, bool owner,
+                                                const u64 (&mine)[WIDTH / K],
+                                                u32 (&lo)[WIDTH], u32 (&hi)[WIDTH],
+                                                u64& w0) {
+    if (owner) {
+#pragma unroll
+        for (int k = 0; k < WIDTH / K; ++k) stage[q + K * k] = mine[k];
+    }
+    __syncwarp();
+    const ulonglong2* row = reinterpret_cast<const ulonglong2*>(stage);
+#pragma unroll
+    for (int j = 0; j < WIDTH / 2; ++j) {
+        ulonglong2 v = row[j];
+        lo[2 * j] = (u32)v.x;
+        hi[2 * j] = (u32)(v.x >> 32);
+        lo[2 * j + 1] = (u32)v.y;
+        hi[2 * j + 1] = (u32)(v.y >> 32);
+        if (j == 0) w0 = v.x;
+    }
+}
+
+template <int K>
+__device__ __forceinline__ void splitk_full_round(u64 (&mine)[WIDTH / K],
+                                                  const u64* tables, int q, int r) {
+#pragma unroll
+    for (int k = 0; k < WIDTH / K; ++k)
+        mine[k] = sbox7(add_const(mine[k], tables[r * WIDTH + q + K * k]));
+}
+
+template <int K>
+__global__ void __launch_bounds__(SPLIT_THREADS)
+poseidon_splitk_kernel(const u64* __restrict__ in, u64* __restrict__ out, long long L) {
+    typedef SplitK<K> S;
+    __shared__ u64 tables[TABLE_WORDS];
+    for (int i = threadIdx.x; i < TABLE_WORDS; i += SPLIT_THREADS) tables[i] = TABLES[i];
+    __syncthreads();
+    __shared__ __align__(16) u64 stage[SPLIT_WARPS][2][S::PERMS][WIDTH];
+    const int warp = threadIdx.x / 32, lw = threadIdx.x % 32;
+    const int g = lw / S::GROUP;
+    const bool owner = lw % S::GROUP < K;
+    const int q = owner ? lw % S::GROUP : 0;
+    const long long lane =
+        ((long long)blockIdx.x * SPLIT_WARPS + warp) * S::PERMS + g;
+    const bool live = lane < L;
+    const long long at = live ? lane : 0;
+    u32 m[WIDTH];
+#pragma unroll
+    for (int j = 0; j < WIDTH; ++j) m[j] = CIRC_TABLE[(j - q + WIDTH) % WIDTH];
+    const u32 d0 = (q == 0) ? DIAG0 : 0;
+    u64 mine[S::WORDS];
+#pragma unroll
+    for (int k = 0; k < S::WORDS; ++k) mine[k] = in[(q + K * k) * L + at];
+    u32 lo[WIDTH], hi[WIDTH];
+    u64 w0;
+    int b = 0;
+#pragma unroll 1
+    for (int r = 0; r < HALF_FULL; ++r) {
+        splitk_full_round<K>(mine, tables, q, r);
+        splitk_exchange<K>(stage[warp][b][g], q, owner, mine, lo, hi, w0);
+        b ^= 1;
+        splitk_rows<K>(mine, m, d0, lo, hi);
+    }
+#pragma unroll
+    for (int k = 0; k < S::WORDS; ++k)
+        mine[k] = add_const(mine[k], tables[PARTIAL_AT + q + K * k]);
+#pragma unroll 1
+    for (int r = 0; r < N_PARTIAL; ++r) {
+        splitk_exchange<K>(stage[warp][b][g], q, owner, mine, lo, hi, w0);
+        b ^= 1;
+        w0 = add_const(sbox7(w0), tables[PARTIAL_AT + WIDTH + r]);
+        lo[0] = (u32)w0;
+        hi[0] = (u32)(w0 >> 32);
+        splitk_rows<K>(mine, m, d0, lo, hi);
+    }
+#pragma unroll 1
+    for (int r = HALF_FULL + N_PARTIAL; r < N_ROUNDS; ++r) {
+        splitk_full_round<K>(mine, tables, q, r);
+        splitk_exchange<K>(stage[warp][b][g], q, owner, mine, lo, hi, w0);
+        b ^= 1;
+        splitk_rows<K>(mine, m, d0, lo, hi);
+    }
+    if (live && owner) {
+#pragma unroll
+        for (int k = 0; k < S::WORDS; ++k)
+            out[(q + K * k) * L + lane] = canonical(mine[k]);
+    }
+}
+
+template <int K>
+static int launch_splitk(const void* in, void* out, long long L, cudaStream_t st) {
+    const long long per_block = SPLIT_WARPS * SplitK<K>::PERMS;
+    poseidon_splitk_kernel<K><<<(unsigned)((L + per_block - 1) / per_block),
+                                SPLIT_THREADS, 0, st>>>((const u64*)in, (u64*)out, L);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int poseidon_splitk(const void* in, void* out, long long L,
+                               int threads_per_perm, void* stream) {
+    if (L <= 0) return 0;
+    if (threads_per_perm == 4) return launch_splitk<4>(in, out, L, (cudaStream_t)stream);
+    if (threads_per_perm == 6) return launch_splitk<6>(in, out, L, (cudaStream_t)stream);
+    return (int)cudaErrorInvalidValue;
+}
+'''
+
 SPARSE = r'''
 // ---- four threads a permutation, partial rounds in plonky2's sparse form
-// (tools/torch_poseidon_alternatives.py)
+// (tools/torch_poseidon_alternatives.py), on SPLITK's helpers with K = 4
 // FAST_PARTIAL_ROUND_INITIAL_MATRIX [r-1][c-1], W_HATS, VS, copied into
 // shared memory by each block as the kept kernel copies its tables
 #define SP_WORDS (11 * 11 + 2 * N_PARTIAL * 11)
@@ -178,7 +335,7 @@ __device__ __forceinline__ u64 shfl_xor_u64(u64 v, int m) {
 
 __device__ __forceinline__ void permute_sparse4(const u64* __restrict__ in,
                                                 u64* __restrict__ out, long long L) {
-    __shared__ __align__(16) u64 stage[SPLIT_WARPS][2][SPLIT_PERMS][WIDTH];
+    __shared__ __align__(16) u64 stage[SPLIT_WARPS][2][SplitK<4>::PERMS][WIDTH];
     __shared__ u64 tables[TABLE_WORDS];
     __shared__ u64 sp[SP_WORDS];
     for (int i = threadIdx.x; i < TABLE_WORDS; i += SPLIT_THREADS) tables[i] = TABLES[i];
@@ -188,43 +345,43 @@ __device__ __forceinline__ void permute_sparse4(const u64* __restrict__ in,
     const u64* SP_WHAT = sp + 11 * 11;
     const u64* SP_VS = SP_WHAT + N_PARTIAL * 11;
     const int warp = threadIdx.x / 32, lw = threadIdx.x % 32;
-    const int q = lw % SPLIT, g = lw / SPLIT;
+    const int q = lw % 4, g = lw / 4;
     const long long lane =
-        ((long long)blockIdx.x * SPLIT_WARPS + warp) * SPLIT_PERMS + g;
+        ((long long)blockIdx.x * SPLIT_WARPS + warp) * SplitK<4>::PERMS + g;
     const bool live = lane < L;
     const long long at = live ? lane : 0;
     u32 m[WIDTH];
 #pragma unroll
     for (int j = 0; j < WIDTH; ++j) m[j] = CIRC_TABLE[(j - q + WIDTH) % WIDTH];
     const u32 d0 = (q == 0) ? DIAG0 : 0;
-    u64 mine[WIDTH / SPLIT];
+    u64 mine[WIDTH / 4];
 #pragma unroll
-    for (int k = 0; k < WIDTH / SPLIT; ++k) mine[k] = in[(q + SPLIT * k) * L + at];
+    for (int k = 0; k < WIDTH / 4; ++k) mine[k] = in[(q + 4 * k) * L + at];
     u32 lo[WIDTH], hi[WIDTH];
     u64 w0;
     int b = 0;
 #pragma unroll 1
     for (int r = 0; r < HALF_FULL; ++r) {
 #pragma unroll
-        for (int k = 0; k < WIDTH / SPLIT; ++k)
+        for (int k = 0; k < WIDTH / 4; ++k)
             mine[k] = sbox7(add_const(mine[k],
-                                      split_constant(tables, r * WIDTH + q + SPLIT * k)));
-        split_exchange(&stage[warp][b][g], q, true, mine, lo, hi, w0);
+                                      tables[r * WIDTH + q + 4 * k]));
+        splitk_exchange<4>(stage[warp][b][g], q, true, mine, lo, hi, w0);
         b ^= 1;
-        split_rows(mine, m, d0, lo, hi);
+        splitk_rows<4>(mine, m, d0, lo, hi);
     }
 #pragma unroll
-    for (int k = 0; k < WIDTH / SPLIT; ++k)
+    for (int k = 0; k < WIDTH / 4; ++k)
         mine[k] = add_const(mine[k],
-                            split_constant(tables, N_ROUNDS * WIDTH + q + SPLIT * k));
+                            tables[PARTIAL_AT + q + 4 * k]);
     // the initial 11 x 11 matrix on words 1..11; word 0 is kept, by every
     // thread of the group (s0)
-    split_exchange(&stage[warp][b][g], q, true, mine, lo, hi, w0);
+    splitk_exchange<4>(stage[warp][b][g], q, true, mine, lo, hi, w0);
     b ^= 1;
     u64 s0 = w0;
 #pragma unroll
-    for (int k = 0; k < WIDTH / SPLIT; ++k) {
-        const int c = q + SPLIT * k;
+    for (int k = 0; k < WIDTH / 4; ++k) {
+        const int c = q + 4 * k;
         acc160 a = {0, 0, 0};
 #pragma unroll
         for (int r = 1; r < WIDTH; ++r)
@@ -235,17 +392,17 @@ __device__ __forceinline__ void permute_sparse4(const u64* __restrict__ in,
     for (int r = 0; r < N_PARTIAL; ++r) {
         acc160 a = {0, 0, 0};
 #pragma unroll
-        for (int k = 0; k < WIDTH / SPLIT; ++k) {
-            const int c = q + SPLIT * k;
+        for (int k = 0; k < WIDTH / 4; ++k) {
+            const int c = q + 4 * k;
             if (c > 0) acc_mul(a, mine[k], SP_WHAT[r * 11 + c - 1]);
         }
         u64 part = reduce160(a);
         part = add_gl(part, shfl_xor_u64(part, 1));
         part = add_gl(part, shfl_xor_u64(part, 2));
-        s0 = add_const(sbox7(s0), split_constant(tables, N_ROUNDS * WIDTH + WIDTH + r));
+        s0 = add_const(sbox7(s0), tables[PARTIAL_AT + WIDTH + r]);
 #pragma unroll
-        for (int k = 0; k < WIDTH / SPLIT; ++k) {
-            const int c = q + SPLIT * k;
+        for (int k = 0; k < WIDTH / 4; ++k) {
+            const int c = q + 4 * k;
             if (c > 0) mine[k] = add_gl(mine[k], mul_gl(SP_VS[r * 11 + c - 1], s0));
         }
         s0 = add_gl(part, mul_gl(s0, 25));
@@ -254,17 +411,17 @@ __device__ __forceinline__ void permute_sparse4(const u64* __restrict__ in,
 #pragma unroll 1
     for (int r = HALF_FULL + N_PARTIAL; r < N_ROUNDS; ++r) {
 #pragma unroll
-        for (int k = 0; k < WIDTH / SPLIT; ++k)
+        for (int k = 0; k < WIDTH / 4; ++k)
             mine[k] = sbox7(add_const(mine[k],
-                                      split_constant(tables, r * WIDTH + q + SPLIT * k)));
-        split_exchange(&stage[warp][b][g], q, true, mine, lo, hi, w0);
+                                      tables[r * WIDTH + q + 4 * k]));
+        splitk_exchange<4>(stage[warp][b][g], q, true, mine, lo, hi, w0);
         b ^= 1;
-        split_rows(mine, m, d0, lo, hi);
+        splitk_rows<4>(mine, m, d0, lo, hi);
     }
     if (live) {
 #pragma unroll
-        for (int k = 0; k < WIDTH / SPLIT; ++k)
-            out[(q + SPLIT * k) * L + lane] = canonical(mine[k]);
+        for (int k = 0; k < WIDTH / 4; ++k)
+            out[(q + 4 * k) * L + lane] = canonical(mine[k]);
     }
 }
 
@@ -286,7 +443,7 @@ extern "C" int poseidon_sparse4_set_tables(const void* init, const void* what,
 extern "C" int poseidon_sparse4(const void* in, void* out, long long L,
                                 int threads_per_perm, void* stream) {
     if (L <= 0) return 0;
-    const long long per_block = SPLIT_WARPS * SPLIT_PERMS;
+    const long long per_block = SPLIT_WARPS * SplitK<4>::PERMS;
     poseidon_sparse4_kernel<<<(unsigned)((L + per_block - 1) / per_block),
                               SPLIT_THREADS, 0, (cudaStream_t)stream>>>(
         (const u64*)in, (u64*)out, L);
@@ -295,37 +452,31 @@ extern "C" int poseidon_sparse4(const void* in, void* out, long long L,
 '''
 
 STAGE = """    __shared__ u64 tables[TABLE_WORDS];
-    for (int i = threadIdx.x; i < TABLE_WORDS; i += SPLIT_THREADS) tables[i] = TABLES[i];
+    for (int i = threadIdx.x; i < TABLE_WORDS; i += THREADS) tables[i] = TABLES[i];
     __syncthreads();
 """
-NO_STAGE = """    const u64* tables = nullptr;
+NO_STAGE = """    const u64* tables = TABLES;
 """
-FROM_TABLES = "    return tables[i];\n"
-FROM_CONSTANT = ("    return i < N_ROUNDS * WIDTH ? ROUND_CONSTANTS[i]\n"
-                 "                                : PARTIAL_CONSTANTS[i - N_ROUNDS * WIDTH];\n")
+DYN_STAGE = STAGE.replace("i += THREADS)", "i += blockDim.x)")
+TABLES_GLOBAL = "__device__ u64 TABLES[TABLE_WORDS];"
+TABLES_CONSTANT = "__constant__ u64 TABLES[TABLE_WORDS];"
 TWO_SUMS = """    u64 sum_lo[2] = {0, 0}, sum_hi[2] = {0, 0};
 #pragma unroll
     for (int j = 0; j < WIDTH; ++j) {
-        const u32 c = m[(j - SHIFT + WIDTH) % WIDTH];
-        mad_wide(sum_lo[j % 2], lo[j], c);
-        mad_wide(sum_hi[j % 2], hi[j], c);
+        mad_wide(sum_lo[j % 2], lo[j], m[j]);
+        mad_wide(sum_hi[j % 2], hi[j], m[j]);
     }
-    if (SHIFT == 0) {
-        mad_wide(sum_lo[1], lo[0], d0);
-        mad_wide(sum_hi[1], hi[0], d0);
-    }
+    mad_wide(sum_lo[1], lo[0], d0);
+    mad_wide(sum_hi[1], hi[0], d0);
     return fold_row(sum_lo[0] + sum_lo[1], sum_hi[0] + sum_hi[1]);"""
 ONE_SUM = """    u64 sum_lo = 0, sum_hi = 0;
 #pragma unroll
     for (int j = 0; j < WIDTH; ++j) {
-        const u32 c = m[(j - SHIFT + WIDTH) % WIDTH];
-        mad_wide(sum_lo, lo[j], c);
-        mad_wide(sum_hi, hi[j], c);
+        mad_wide(sum_lo, lo[j], m[j]);
+        mad_wide(sum_hi, hi[j], m[j]);
     }
-    if (SHIFT == 0) {
-        mad_wide(sum_lo, lo[0], d0);
-        mad_wide(sum_hi, hi[0], d0);
-    }
+    mad_wide(sum_lo, lo[0], d0);
+    mad_wide(sum_hi, hi[0], d0);
     return fold_row(sum_lo, sum_hi);"""
 MAD_ASM = 'asm("mad.wide.u32 %0, %1, %2, %0;" : "+l"(sum) : "r"(a), "r"(b));'
 MAD_C = "sum += (u64)a * b;"
@@ -345,8 +496,11 @@ def _bind(lib, entry):
                    ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     rc, partial = pk.schedule_tables()
-    for setter, table in (("poseidon_set_round_constants", rc),
-                          ("poseidon_set_partial_constants", partial)):
+    uploads = [("poseidon_set_round_constants", rc),
+               ("poseidon_set_partial_constants", partial)]
+    if entry == "poseidon_dense":
+        uploads.append(("poseidon_dense_set_round_constants", rc))
+    for setter, table in uploads:
         getattr(lib, setter).argtypes = [ctypes.c_void_p]
         if getattr(lib, setter)(table.ctypes.data):
             sys.exit(f"{setter} failed")
@@ -385,48 +539,30 @@ def build_cmd(name, text, extra_flags, entry):
 
 
 def sass_counts(lib_path):
-    """Machine instructions of each kernel in a library: by opcode, and
+    """Machine instructions of each kernel in a library: by opcode, the
+    loads by kind (LDS shared, LDC constant, LDG global memory), and
     executed a thread. The kernels run three loops over the rounds, in
     source order 4 full, 22 partial and 4 full rounds, each the body from a
     backward branch's target to the branch; what a thread executes is the
     straight-line code once and each body as many times as its loop runs
     (the remainder's branches, taken or not, counted once). Loops of fewer
-    than 60 instructions (the narrow grid's copy of its tables, the trap
-    after EXIT) are no rounds and counted once; where ptxas shares one body
-    between two loops over the rounds, the count is left out."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not Path(tool).exists():
+    than 60 instructions (a copy of the tables, the trap after EXIT) are no
+    rounds and counted once; where ptxas shares one body between two loops
+    over the rounds, the count is left out."""
+    listing = sass.listings(lib_path)
+    if listing is None:
         return None
-    out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
-                         text=True, timeout=300)
-    if out.returncode != 0:
-        return None
-    listings, name = {}, None
-    for line in out.stdout.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            name = m.group(1)
-            listings[name] = []
-            continue
-        m = re.match(r"\s+/\*([0-9a-f]{4})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
-                     r"\s*([^;]*)", line)
-        if m and name:
-            listings[name].append((int(m.group(1), 16), m.group(2), m.group(3)))
     result = {}
-    for k, ins in listings.items():
-        loops = []
-        for at, op, args in ins:
-            target = re.match(r"`?\(?\.?L?_?x?_?(?:0x)?([0-9a-f]+)", args.strip())
-            if op == "BRA" and target and int(target.group(1), 16) < at:
-                dest = int(target.group(1), 16)
-                loops.append(sum(1 for a, _, _ in ins if dest <= a <= at))
-        real = [n for n in loops if n >= 60]
+    for k, ins in listing.items():
+        real = [len(b) for b in sass.loop_bodies(ins) if len(b) >= 60]
         executed = None
         if len(real) == 3:
             executed = len(ins) + sum(n * (t - 1) for n, t in zip(real, (4, 22, 4)))
+        ops = collections.Counter(o for _, o, _ in ins)
         result[k] = {"static": len(ins), "loop_bodies": real,
                      "executed_a_thread": executed,
-                     "top": dict(collections.Counter(o for _, o, _ in ins).most_common(12))}
+                     "loads": {o: n for o, n in ops.items() if o.startswith(("LD", "ULD"))},
+                     "top": dict(ops.most_common(12))}
     return result
 
 
@@ -442,23 +578,23 @@ def main():
                       "nvidia_smi": smi.stdout.strip()}), flush=True)
 
     src = (cuda_build.CSRC / cuda_build.SOURCES["poseidon_gl"]).read_text()
-    for text in (MAD_ASM, STAGE, FROM_TABLES, TWO_SUMS):
-        if text not in src:
+    for text in (MAD_ASM, STAGE, TABLES_GLOBAL, TWO_SUMS):
+        if src.count(text) != 1:
             sys.exit(f"the kernel's source is not as this script expects:\n{text}")
     jobs = {"dense": build_cmd("dense", src + DENSE, [], "poseidon_dense"),
             "lane64": build_cmd("lane64", define(src, "LANE_THREADS", 64), [],
                                 "poseidon_permute"),
             "split64": build_cmd("split64", define(src, "SPLIT_THREADS", 64), [],
                                  "poseidon_permute"),
-            "split4": build_cmd("split4", define(src, "SPLIT", 4), [], "poseidon_permute"),
-            "split6": build_cmd("split6", define(src, "SPLIT", 6), [], "poseidon_permute"),
-            "sparse4": build_cmd("sparse4", define(src, "SPLIT", 4) + SPARSE, [],
-                                 "poseidon_sparse4"),
+            "splitk": build_cmd("splitk", src + SPLITK, [], "poseidon_splitk"),
+            "sparse4": build_cmd("sparse4", src + SPLITK + SPARSE, [], "poseidon_sparse4"),
             "cmad": build_cmd("cmad", src.replace(MAD_ASM, MAD_C), [], "poseidon_permute"),
             "cmem": build_cmd("cmem", src.replace(STAGE, NO_STAGE).replace(
-                FROM_TABLES, FROM_CONSTANT), [], "poseidon_permute"),
+                TABLES_GLOBAL, TABLES_CONSTANT), [], "poseidon_permute"),
             "onesum": build_cmd("onesum", src.replace(TWO_SUMS, ONE_SUM), [],
                                 "poseidon_permute"),
+            "dyncopy": build_cmd("dyncopy", src.replace(STAGE, DYN_STAGE), [],
+                                 "poseidon_permute"),
             "o1": build_cmd("o1", src, ["-Xptxas", "-O1"], "poseidon_permute")}
     procs = {n: subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                  text=True) for n, (cmd, _, _) in jobs.items()}
@@ -493,8 +629,9 @@ def main():
     # every lane count and timed at the path's and those between them; the
     # two tensor-core kernels (unchanged) beside them, through the wrapper
     runs = [("kept", 1), ("kept", pk.SPLIT), ("dense", 1), ("lane64", 1),
-            ("split64", pk.SPLIT), ("split4", 4), ("split6", 6), ("sparse4", 4),
-            ("cmad", 1), ("cmad", pk.SPLIT), ("cmem", pk.SPLIT), ("onesum", pk.SPLIT),
+            ("split64", pk.SPLIT), ("splitk", 4), ("splitk", 6), ("sparse4", 4),
+            ("cmad", 1), ("cmad", pk.SPLIT), ("cmem", 1), ("cmem", pk.SPLIT),
+            ("onesum", pk.SPLIT), ("dyncopy", 1), ("dyncopy", pk.SPLIT),
             ("o1", 1), ("o1", pk.SPLIT)]
     fns = {"kept": kept, **launch}
     rng = np.random.default_rng(9)

@@ -23,8 +23,6 @@ from __future__ import annotations
 import argparse
 import collections
 import json
-import re
-import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -36,6 +34,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from stark_verifier_tpu_torch.ops import cuda_build, probes  # noqa: E402
+from stark_verifier_tpu_torch.utils import sass  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): 67 TFLOP/s float32
 # outside the tensor cores = 33.5e12 fused multiply-adds a second on 128
@@ -53,8 +52,9 @@ MMA_EXECUTED_OPS = {"u8": 2 * 16 * 8 * 16, "tf32": 2 * 2 * 16 * 8 * 8}
 MMA_INSTRUCTIONS = {"u8": 1, "tf32": 2}
 
 # Instructions a step needs at the least on an SM's 64-lane integer
-# multiply-add pipe (fma_f32: on its 128 float32 lanes), from the machine code
-# this tool prints. An add or a compare can also run on the second 64-lane
+# multiply-add pipe (fma_f32: on its 128 float32 lanes): the fewest machine
+# instructions that compute the step, not what the assembler emitted (this
+# tool prints that). An add or a compare can also run on the second 64-lane
 # integer pipe, so it counts as half. None: the assembler merges two steps
 # of add_u32 into one three-input add and spreads them over both pipes, so
 # its steps/s is the rate of the step y <- y + x and no instruction's rate;
@@ -68,10 +68,11 @@ MIN_PIPE_SLOTS = {
     "cvt_u32_f32": 2.5,    # two converts + add
     "mul_lo_u64": 3,       # one wide, two narrow multiplies
     "mul_hi_u64": 4,       # four wide multiplies
-    # IMAD.WIDE.U32 with a zero addend, then the 64-bit add as IADD3 and
-    # half an IADD3.X (two steps' high words share one three-input add):
-    # the loop body this tool prints, 32 + 32 + 16 for 32 steps at ilp 4
-    "mad_wide_u32": 1.75,
+    # one IMAD.WIDE.U32 with the 64-bit y as its addend, the rule
+    # chip_smoke.py's bound counts by too; the built loop body executes 2.5
+    # a step (IMAD.WIDE.U32 with a zero addend, the 64-bit add as IADD3 and
+    # half an IADD3.X: 32 + 32 + 16 for 32 steps at ilp 4)
+    "mad_wide_u32": 1,
 }
 
 
@@ -100,38 +101,14 @@ def sass_histogram():
     """Machine-instruction counts of every kernel in the probes' library, by
     opcode with its modifiers: of the whole kernel (a loop body unrolled 8
     times, so about 8 steps a chain, its remainder loop, prologue and
-    epilogue), and of its longest loop body alone (from a backward branch's
-    target to the branch), which is what a step of the timed chain
-    executes: divide it by 8 x ilp steps."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not Path(tool).exists():
+    epilogue), and of its longest loop body alone, which is what a step of
+    the timed chain executes: divide it by 8 x ilp steps."""
+    listing = sass.listings(cuda_build._target("probes"))
+    if listing is None:
         return None
-    lib = cuda_build._target("probes")
-    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
-                         text=True, timeout=300)
-    if out.returncode != 0:
-        return None
-    listings, name = {}, None
-    for line in out.stdout.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            name = m.group(1)
-            listings[name] = []
-            continue
-        m = re.match(r"\s+/\*([0-9a-f]{4})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
-                     r"\s*([^;]*)", line)
-        if m and name:
-            listings[name].append((int(m.group(1), 16), m.group(2), m.group(3)))
     result = {}
-    for k, ins in listings.items():
-        body = []
-        for at, op, args in ins:
-            target = re.match(r"`?\(?\.?L?_?x?_?(?:0x)?([0-9a-f]+)", args.strip())
-            if op == "BRA" and target:
-                dest = int(target.group(1), 16)
-                span = [o for a, o, _ in ins if dest <= a <= at]
-                if dest < at and len(span) > len(body):
-                    body = span
+    for k, ins in listing.items():
+        body = max(sass.loop_bodies(ins), key=len, default=[])
         result[k] = {"whole": dict(collections.Counter(o for _, o, _ in ins).most_common(8)),
                      "loop_body": dict(collections.Counter(body).most_common())}
     return result
