@@ -13,9 +13,9 @@ needs one CUDA card (built for Hopper, sm_90a), `nvcc`, and no network. It
      lane counts the paths give it and, for the two rate probes, on the
      card-filling tensors they are timed on (exact equality: this is modular
      arithmetic; the one float chain of the rate probe has a stated
-     tolerance), the three Poseidon kernels against each other too (the
-     integer-pipe kernel's two grids on both sides of the lane count that
-     picks between them), and times them, the Poseidon kernels in turns at
+     tolerance), the three Poseidon kernels against each other too (each
+     kernel's two grids on both sides of the lane count that picks between
+     them), and times them, the Poseidon kernels in turns at
      every lane count a verifier path launches them at, each beside its
      bound there (as device time: launches replayed from a CUDA graph); the
      probes' launches are counted over their timed loop,
@@ -251,7 +251,7 @@ def phase_build():
     t0 = time.time()
     logs = cuda_build.build_all()
     for kernel in pk.KERNELS:          # load, bind, upload the round constants
-        pk._library(pk._HOME[kernel][0])
+        pk._library(pk._HOME[kernel])
     probes._library()
     bk._library()
     seconds = time.time() - t0
@@ -259,10 +259,12 @@ def phase_build():
           "nvcc": cuda_build.nvcc_path(), "flags": cuda_build.NVCC_FLAGS,
           "source_flags": cuda_build.SOURCE_FLAGS,
           "seconds": round(seconds, 2), "built": sorted(n for n, log in logs.items() if log)})
-    # one line per kernel: registers and spills of each of its entry points,
-    # as ptxas reported them when the library was built
+    # one line per kernel: registers and spills of each of its entry points
+    # (the Poseidon kernels' narrow grids are kernels of their own), as
+    # ptxas reported them when the library was built
     for name, (source, _) in KERNEL_FILES.items():
-        functions = cuda_build.ptxas_report(Path(source).stem).get(f"{name}_kernel")
+        report = cuda_build.ptxas_report(Path(source).stem)
+        functions = report.get(f"{name}_kernel", []) + report.get(f"{name}_narrow_kernel", [])
         check(bool(functions) and all("registers" in f and "spill_stores" in f
                                       for f in functions),
               f"no ptxas report for {name}")
@@ -306,9 +308,10 @@ def phase_poseidon_kernels(device, rows):
     each other on the card, then timed in turns at every lane count a
     verifier path launches them at."""
     rng = np.random.default_rng(SEED)
-    # both sides of the wrapper's threshold between its two grids
-    lane_counts = sorted(set(PATH_LANES) | {7, 8, 1025, pk.SPLIT_MAX_LANES,
-                                              pk.SPLIT_MAX_LANES + 1})
+    # both sides of each kernel's threshold between its two grids
+    thresholds = (pk.SPLIT_MAX_LANES, pk.MMA_MAX_LANES, pk.MMA2_MAX_LANES)
+    lane_counts = sorted(set(PATH_LANES) | {7, 8, 1025}
+                         | {n + d for n in thresholds for d in (0, 1)})
     inputs = {}
     for lanes in lane_counts:
         x = inputs[lanes] = gl64.from_u64(edge_state(rng, lanes), device)
@@ -345,8 +348,9 @@ def phase_poseidon_kernels(device, rows):
         t_bytes, t_ops = poseidon_bound_ms(lanes)
         bound = max(t_bytes, t_ops)
         by_lanes[lanes] = {
-            "bound_ms": bound, "grid_threads_per_permutation":
-                pk.threads_per_permutation(lanes), **{
+            "bound_ms": bound, "grid_threads_per_permutation": {
+                name: pk.threads_per_permutation(lanes, mxu)
+                for mxu, name in enumerate(pk.KERNELS)}, **{
             name: {"ms": timed[name][lanes], "share_of_bound": bound / timed[name][lanes]}
             for name in pk.KERNELS}}
     lanes = PATH_LANES[-1]
@@ -361,12 +365,23 @@ def phase_poseidon_kernels(device, rows):
             name, ms, plain_ms, t_bytes, t_ops, lanes=lanes,
             ms_by_lanes=timed[name],
             permutations_per_s=lanes / (ms * 1e-3))
+    # the rule for the default kernel: a variant takes it only if it is
+    # more than 5 % faster than poseidon_permute at both wide counts and no
+    # slower at the transcript's 1,024 lanes, in this run
+    base = timed[pk.KERNELS[0]]
+    default_rule = {name: {
+        "faster_by_at_wide": {n: 1 - timed[name][n] / base[n] for n in PATH_LANES[-2:]},
+        "ratio_at_1024": timed[name][BATCH] / base[BATCH],
+        "qualifies": all(timed[name][n] < 0.95 * base[n] for n in PATH_LANES[-2:])
+        and timed[name][BATCH] <= base[BATCH]} for name in pk.KERNELS[1:]}
     emit({"phase": "poseidon_kernels", "lane_counts": lane_counts,
           "equal_to_plain_and_to_each_other": True,
+          "default_rule": default_rule,
           "instructions_per_permutation": INT32_INSTR_PER_PERMUTATION,
           "instructions_per_permutation_dense": INT32_INSTR_PER_PERMUTATION_DENSE,
           "instructions_per_permutation_sparse": INT32_INSTR_PER_PERMUTATION_SPARSE,
-          "split_max_lanes": pk.SPLIT_MAX_LANES,
+          "split_max_lanes": pk.SPLIT_MAX_LANES, "mma_max_lanes": pk.MMA_MAX_LANES,
+          "mma2_max_lanes": pk.MMA2_MAX_LANES,
           "by_lanes": by_lanes,
           **{name: rows[name] for name in pk.KERNELS}})
 

@@ -1,11 +1,7 @@
 // Goldilocks field arithmetic (p = 2^64 - 2^32 + 1) and the Poseidon round
 // pieces that every Poseidon kernel of this package shares: the 128-bit fold,
-// multiply, add on any representative, the x^7 s-box, the round constants
-// and the recombination of an MDS row from its two partial sums.
-//
-// __constant__ memory belongs to the library a source is compiled into, so
-// each library that includes this header has its own ROUND_CONSTANTS and has
-// to be given them once (set_round_constants) before its kernels run.
+// multiply, add on any representative, the x^7 s-box and the canonical form.
+// Each kernel keeps its round constants in a table of its own library.
 #pragma once
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -19,14 +15,6 @@ typedef unsigned int u32;
 #define N_PARTIAL 22
 #define EPS 0xFFFFFFFFull                // 2^64 mod p
 #define GL_P 0xFFFFFFFF00000001ull
-
-__constant__ u64 ROUND_CONSTANTS[N_ROUNDS * WIDTH];
-
-// Copies the 30 x 12 round constants (host memory) into __constant__ memory.
-static inline int set_round_constants(const void* host_u64) {
-    return (int)cudaMemcpyToSymbol(ROUND_CONSTANTS, host_u64,
-                                   sizeof(u64) * N_ROUNDS * WIDTH);
-}
 
 // (hi * 2^64 + lo) mod p as a representative in [0, 2^64), not canonical.
 // 2^64 = EPS and 2^96 = -1 (mod p), so the value is lo - hi_hi + hi_lo * EPS.
@@ -63,21 +51,6 @@ __device__ __forceinline__ u64 sbox7(u64 x) {
     u64 x3 = mul_gl(x2, x);
     u64 x4 = mul_gl(x2, x2);
     return mul_gl(x3, x4);
-}
-
-// (sum_lo + sum_hi * 2^32) mod p for two partial sums below 2^43 each: the
-// value is below 2^75 + 2^43, a 128-bit number whose high word is below
-// 2^11 + 1, which reduce128 folds in one step.
-__device__ __forceinline__ u64 fold_halves(u64 sum_lo, u64 sum_hi) {
-    u64 lo128 = sum_lo + (sum_hi << 32);
-    u64 hi128 = (sum_hi >> 32) + ((lo128 < sum_lo) ? 1ull : 0ull);
-    return reduce128(hi128, lo128);
-}
-
-__device__ __forceinline__ void add_round_constants(u64 (&s)[WIDTH], int round) {
-#pragma unroll
-    for (int j = 0; j < WIDTH; ++j)
-        s[j] = add_gl(s[j], ROUND_CONSTANTS[round * WIDTH + j]);
 }
 
 __device__ __forceinline__ u64 canonical(u64 v) {

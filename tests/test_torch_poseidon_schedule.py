@@ -191,7 +191,7 @@ class _FakeFunction:
     def __call__(self, *args):
         import ctypes
 
-        words = {"poseidon_set_partial_constants": 12 + 22}.get(self.name, 30 * 12)
+        words = 12 + 22 if self.name.endswith("_partial_constants") else 30 * 12
         if self.name.endswith("_constants"):   # copy the table, as the upload does
             args = ((ctypes.c_uint64 * words).from_address(args[0])[:],)
         self.log.append((self.name, self.argtypes, args))
@@ -210,9 +210,8 @@ class _FakeLibrary:
 
 @pytest.mark.parametrize("library", ["poseidon_gl", "poseidon_gl_mma"])
 def test_wrapper_binds_each_library_and_uploads_its_tables(monkeypatch, library):
-    """What `_library` does once a library is built: the integer-pipe
-    kernel takes the grid argument and both tables, the tensor-core
-    kernels the round constants only."""
+    """What `_library` does once a library is built: every kernel takes the
+    grid argument, and each library both tables."""
     import ctypes
     from stark_verifier_tpu_torch.ops import cuda_build
 
@@ -222,18 +221,14 @@ def test_wrapper_binds_each_library_and_uploads_its_tables(monkeypatch, library)
     assert pk._library(library) is fake
     rc, partial = pk.schedule_tables()
     uploaded = {name: args[0] for name, _, args in fake.log}
-    if library == "poseidon_gl":
-        assert set(uploaded) == {"poseidon_set_round_constants",
-                                 "poseidon_set_partial_constants"}
-        assert uploaded["poseidon_set_partial_constants"] == partial.tolist()
-        assert fake.fns["poseidon_permute"].argtypes == [
+    prefix = "poseidon" if library == "poseidon_gl" else "poseidon_mma"
+    assert set(uploaded) == {f"{prefix}_set_round_constants",
+                             f"{prefix}_set_partial_constants"}
+    assert uploaded[f"{prefix}_set_partial_constants"] == partial.tolist()
+    for kernel in (pk.KERNELS[:1] if library == "poseidon_gl" else pk.KERNELS[1:]):
+        assert fake.fns[kernel].argtypes == [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
             ctypes.c_void_p]
-    else:
-        assert set(uploaded) == {"poseidon_mma_set_round_constants"}
-        for kernel in pk.KERNELS[1:]:
-            assert fake.fns[kernel].argtypes == [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
     assert all(table == rc.tolist() for name, table in uploaded.items()
                if name.endswith("_round_constants"))
     assert all(types == [ctypes.c_void_p] for name, types, _ in fake.log)

@@ -6,7 +6,7 @@ port's twin of tools/bench_poseidon_kernels.py.
 
   mxu=0  poseidon_permute       MDS on the integer pipe
   mxu=1  poseidon_permute_mma   MDS on the tensor cores (u8 mma over bytes)
-  mxu=2  poseidon_permute_mma2  the same, two interleaved streams a thread
+  mxu=2  poseidon_permute_mma2  the same, two streams packed in a warp at narrow counts
 
 Each variant is first checked against `permute_plain` (exact), then timed
 with CUDA events at the lane counts chip_smoke.py times (the ones the

@@ -78,8 +78,39 @@ from stark_verifier_tpu_torch.utils.roofline import graph_ms  # noqa: E402
 PATH_LANES = [1, 28, 112, 256, 1024, 28672, 114688]
 BETWEEN = [2048, 4096, 8192, 16384]
 
+# The round-constant table in __constant__ memory, its upload, the general
+# recombination of an MDS row from its two partial sums and the dense
+# round-constant add: what the kernels before the redesigns shared in
+# ops/csrc/goldilocks.cuh, for the builds of those kernels here and in
+# tools/torch_poseidon_mma_alternatives.py.
+CONSTANT_HELPERS = r'''
+__constant__ u64 ROUND_CONSTANTS[N_ROUNDS * WIDTH];
+
+// Copies the 30 x 12 round constants (host memory) into __constant__ memory.
+static inline int set_round_constants(const void* host_u64) {
+    return (int)cudaMemcpyToSymbol(ROUND_CONSTANTS, host_u64,
+                                   sizeof(u64) * N_ROUNDS * WIDTH);
+}
+
+// (sum_lo + sum_hi * 2^32) mod p for two partial sums below 2^43 each: the
+// value is below 2^75 + 2^43, a 128-bit number whose high word is below
+// 2^11 + 1, which reduce128 folds in one step.
+__device__ __forceinline__ u64 fold_halves(u64 sum_lo, u64 sum_hi) {
+    u64 lo128 = sum_lo + (sum_hi << 32);
+    u64 hi128 = (sum_hi >> 32) + ((lo128 < sum_lo) ? 1ull : 0ull);
+    return reduce128(hi128, lo128);
+}
+
+__device__ __forceinline__ void add_round_constants(u64 (&s)[WIDTH], int round) {
+#pragma unroll
+    for (int j = 0; j < WIDTH; ++j)
+        s[j] = add_gl(s[j], ROUND_CONSTANTS[round * WIDTH + j]);
+}
+'''
+
 DENSE = r'''
 // ---- the kernel before the redesign (tools/torch_poseidon_alternatives.py)
+''' + CONSTANT_HELPERS + r'''
 __device__ __forceinline__ void mds_layer_dense(u64 (&s)[WIDTH]) {
     constexpr u32 CIRC[WIDTH] = MDS_CIRC;
     u32 lo[WIDTH], hi[WIDTH];
@@ -137,7 +168,7 @@ poseidon_dense_kernel(const u64* __restrict__ in, u64* __restrict__ out,
     for (int j = 0; j < WIDTH; ++j) out[j * L + i] = canonical(s[j]);
 }
 
-// add_round_constants reads goldilocks.cuh's ROUND_CONSTANTS, which the kept
+// add_round_constants reads CONSTANT_HELPERS' ROUND_CONSTANTS, which the kept
 // kernel does not use
 extern "C" int poseidon_dense_set_round_constants(const void* host_u64) {
     return set_round_constants(host_u64);
