@@ -73,6 +73,7 @@ from stark_verifier_tpu_torch.ops import cuda_build, gl64, hashers, probes
 from stark_verifier_tpu_torch.ops import poseidon_bn254_kernel as bk
 from stark_verifier_tpu_torch.ops import poseidon_gl as pg
 from stark_verifier_tpu_torch.ops import poseidon_kernel as pk
+from stark_verifier_tpu_torch.utils import sass
 from stark_verifier_tpu_torch.utils.roofline import graph_ms
 
 REPO = Path(__file__).resolve().parent
@@ -164,9 +165,9 @@ BRIDGE_INT32_INSTR_PER_PERMUTATION = (
 
 # 32-bit integer instructions one mad_wide_u32 step of alu_probe needs at
 # the least (phase_probes): y = lo32(y) * x + y is one IMAD.WIDE.U32 with the
-# 64-bit y as its addend. tools/torch_vpu_microbench.py counts by the same
-# rule (MIN_PIPE_SLOTS).
-MAD_WIDE_STEP_INSTRUCTIONS = 1
+# 64-bit y as its addend. Read from the one table of such counts,
+# probes.MIN_PIPE_SLOTS, which tools/torch_vpu_microbench.py reads too.
+MAD_WIDE_STEP_INSTRUCTIONS = probes.MIN_PIPE_SLOTS["mad_wide_u32"]
 
 KERNEL_FILES = {
     "poseidon_permute": ("stark_verifier_tpu_torch/ops/csrc/poseidon_gl.cu",
@@ -439,17 +440,35 @@ def phase_probes(device, rows):
         check(torch.equal(probes.mma_probe(y, M, kind, steps), want),
               f"mma_probe {kind} differs from its plain version at {cols} columns")
 
+    # ---- what a step of each chain loop executes, from the built library
+    listing = sass.listings(cuda_build._target("probes"))
+    steps_sass = None if listing is None else probes.step_sass(listing)
+    if steps_sass is not None:
+        for op, by_ilp in probes.STEP_SASS.items():
+            for ilp, design in by_ilp.items():
+                got = steps_sass[op, ilp]["by_opcode"]
+                check(got == design, f"alu_probe {op} ilp={ilp}: a step of the "
+                      f"chain loop executes {got}, designed {design}")
+
     # ---- the probes' own path: the timed loop, counted
     reset_counts()
     per_op = {}
     for op, big in inputs.items():
+        slots = probes.MIN_PIPE_SLOTS[op]
+        peak = PEAK_F32_FMA_PER_S if op == "fma_f32" else PEAK_INT32_INSTR_PER_S
         for ilp in (1, 4):
             for _ in range(warm):
                 probes.alu_probe(big, op, chain, ilp)
             ms = cuda_ms(lambda: probes.alu_probe(big, op, chain, ilp), reps)
+            bound = None if slots is None else n * chain * ilp * slots / peak * 1e3
             per_op[f"{op}, ilp={ilp}"] = {
                 "ms": ms, "steps_per_s": n * chain * ilp / (ms * 1e-3),
-                "plain_ms": alu_plain_ms[op, ilp]}
+                "plain_ms": alu_plain_ms[op, ilp], "min_pipe_slots_a_step": slots,
+                "bound_ms": bound,
+                "share_of_bound": None if bound is None else bound / ms,
+                "machine_instructions_a_step":
+                    "not measured: no cuobjdump" if steps_sass is None
+                    else steps_sass[op, ilp]["instructions_a_step"]}
     mma_ms = {}
     for kind in probes.KINDS:
         for _ in range(warm):
@@ -465,17 +484,17 @@ def phase_probes(device, rows):
           "the probes' path launched a Poseidon kernel")
 
     # the least a step needs, one IMAD.WIDE.U32, at the 32-bit integer rate
-    # like every instruction of the bounds here; the built kernel executes
-    # 2.5 a step (cuobjdump -sass of the library, printed by
-    # tools/torch_vpu_microbench.py: IMAD.WIDE.U32 with a zero addend, the
-    # 64-bit add as IADD3 and half an IADD3.X, 32 + 32 + 16 for 32 steps in
-    # the ilp-4 loop body), which is its gap to the bound
+    # like every instruction of the bounds here; the built loop body is that
+    # one instruction a step (checked above where cuobjdump is there)
     ops = n * chain * 4 * MAD_WIDE_STEP_INSTRUCTIONS
     rows["alu_probe"] = kernel_row(
         "alu_probe", per_op[f"{row_op}, ilp=4"]["ms"], alu_plain_ms[row_op, 4],
         n * (4 + 8) / PEAK_BYTES_PER_S * 1e3, ops / PEAK_INT32_INSTR_PER_S * 1e3,
         max_abs_err=worst_fma, op=row_op, ilp=4, chain=chain, elements=n,
         instructions_per_step=MAD_WIDE_STEP_INSTRUCTIONS,
+        machine_instructions_a_step=per_op[f"{row_op}, ilp=4"]["machine_instructions_a_step"],
+        sass_a_step="not measured: no cuobjdump" if steps_sass is None
+        else steps_sass[row_op, 4]["by_opcode"],
         tolerance="fma_f32 rtol 1e-5, every other op exact")
     # the one PyTorch call that computes the products: torch.matmul, chained
     # (scaled so that float32 stays finite without the mod 256)

@@ -19,18 +19,38 @@
 //
 // alu_probe. A compiler folds `y += x` 512 times into y + 512 * x and
 // strength-reduces the rest, so every step is one `asm volatile` of the
-// intended PTX instruction (tools/torch_vpu_microbench.py counts the machine
-// instructions in the built library where cuobjdump is there: the assembler
-// still picks the machine code, and merges two add.u32 steps into one
-// three-input add, so OP_ADD_U32 times the step and not one add). A
-// mad_wide_u32 step compiles to 2.5 machine instructions: IMAD.WIDE.U32 with
-// a zero addend, the 64-bit add as IADD3 and half an IADD3.X, two steps'
-// high words sharing one three-input add (the ilp-4 loop body: 32 + 32 + 16
-// for 32 steps, and 3 of loop overhead), where one IMAD.WIDE.U32 with the
-// 64-bit y as its addend would do; the bound (chip_smoke.py) counts that
-// one. With ilp = 1 a thread runs one
+// intended PTX. The assembler still picks the machine code, and it sees
+// through the `asm`: it merges two add.u32 steps into one three-input add
+// (so OP_ADD_U32 times the step, not one add), and at a 4-fold unroll it
+// multiplies the mul_u32 chain by x^2 once every two steps. So the loops
+// are checked by what they execute: ops/probes.py `step_sass` counts a
+// step's machine instructions in the built library (cuobjdump), and
+// tools/torch_alu_probe_alternatives.py holds this design against the
+// ones it turned down, on the card. With ilp = 1 a thread runs one
 // dependent chain (latency shows); with ilp = 4 it runs four independent
-// ones (throughput shows).
+// ones (throughput shows). The chain loop is unrolled 64 times: at 8 its
+// three instructions of control (counter, compare, branch) cost the
+// one-chain loops up to a fifth of their time.
+//
+// mad_wide_u32 is one IMAD.WIDE.U32 a step with the 64-bit y as its
+// addend, which is what the bound (chip_smoke.py) counts. Written as PTX
+// `mad.wide.u32 y, lo, x, y`, ptxas splits it, at -O1 as at -O3, and
+// whether the low word is cast before the `asm` or taken inside it: a
+// product with RZ as its addend, the low add as IADD3, and the high words
+// of two steps summed by one IADD3.X (2.5 instructions a step). Written as
+// a product and a 64-bit add (`mul.wide.u32`, `add.u64`), the same
+// function comes out fused. Measured on an H100 against mul_u32's IMAD,
+// that instruction takes 2 issue slots of the IMAD pipe, but 2.5 where both
+// its factors sit in even registers, beside the even low word of y that it
+// also reads as its addend: so the step gains almost nothing over the split
+// at an unroll of 8 to 32, where ptxas puts x in R0, and a fifth at 64, where
+// it puts x in R5. ops/probes.py STEP_SASS holds that placement, and
+// chip_smoke.py checks it in the built library. What is left to the bound,
+// one slot a step, is the instruction's second slot.
+//
+// mul_lo_u64 is its least count: one wide product of the low words and the
+// two cross products added into its high word by IMAD; `mul.lo.u64` came
+// out with an extra three-input add, 6-9 % slower.
 //
 // mma_probe. y <- (M @ y) mod 256, 30 times, on bytes. The TPU's probe used
 // random floats; this one is integer-valued because it times the product the
@@ -113,11 +133,17 @@ template <> struct Step<OP_CVT_U32_F32> {
                      : "+r"(y) : "r"(x));
     }
 };
+// The low word's wide product, the two cross products added into its high
+// word: the least count (a `mul.lo.u64` gets an extra three-input add)
 template <> struct Step<OP_MUL_LO_U64> {
     typedef u64 X; typedef u64 Y;
     static __device__ __forceinline__ Y init(X x, int k) { return x + k; }
     static __device__ __forceinline__ void run(Y& y, X x) {
-        asm volatile("mul.lo.u64 %0, %0, %1;" : "+l"(y) : "l"(x));
+        asm volatile("{ .reg .u32 al, ah, bl, bh, wl, wh; .reg .u64 w; "
+                     "mov.b64 {al, ah}, %0; mov.b64 {bl, bh}, %1; mul.wide.u32 w, al, bl; "
+                     "mov.b64 {wl, wh}, w; mad.lo.u32 wh, al, bh, wh; "
+                     "mad.lo.u32 wh, ah, bl, wh; mov.b64 %0, {wl, wh}; }"
+                     : "+l"(y) : "l"(x));
     }
 };
 template <> struct Step<OP_MUL_HI_U64> {
@@ -127,12 +153,14 @@ template <> struct Step<OP_MUL_HI_U64> {
         asm volatile("mul.hi.u64 %0, %0, %1;" : "+l"(y) : "l"(x));
     }
 };
+// A product and a 64-bit add, which ptxas fuses into one IMAD.WIDE.U32 with
+// the 64-bit y as its addend (a `mad.wide.u32` it splits: the note above)
 template <> struct Step<OP_MAD_WIDE_U32> {
     typedef u32 X; typedef u64 Y;
     static __device__ __forceinline__ Y init(X x, int k) { return (u64)x + k; }
     static __device__ __forceinline__ void run(Y& y, X x) {
-        u32 y_lo = (u32)y;
-        asm volatile("mad.wide.u32 %0, %1, %2, %0;" : "+l"(y) : "r"(y_lo), "r"(x));
+        asm volatile("{ .reg .u32 lo, hi; .reg .u64 t; mov.b64 {lo, hi}, %0; "
+                     "mul.wide.u32 t, lo, %1; add.u64 %0, %0, t; }" : "+l"(y) : "r"(x));
     }
 };
 
@@ -149,7 +177,7 @@ alu_probe_kernel(const typename Step<OP>::X* __restrict__ x,
     typename S::Y y[ILP];
 #pragma unroll
     for (int k = 0; k < ILP; ++k) y[k] = S::init(xv, k);
-#pragma unroll 8
+#pragma unroll 64
     for (int s = 0; s < chain; ++s) {
 #pragma unroll
         for (int k = 0; k < ILP; ++k) S::run(y[k], xv);

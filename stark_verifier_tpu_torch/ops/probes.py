@@ -31,18 +31,23 @@ bit for bit (as in ops/gl64.py): u32 as int32, u64 as int64.
 Chain k of `ilp` starts at x + k (x + k / 8 in float32); the chains' results
 are summed (wrapping, for the integer types).
 
-A step is one PTX instruction (two or three for the composite ops), but the
-assembler picks the machine code: it merges two steps of add_u32 into one
-three-input add, so that op times the step y <- y + x, not one add
-instruction. tools/torch_vpu_microbench.py prints the opcodes it finds.
+A step is one PTX instruction or a few, but the assembler picks the
+machine code: it merges two steps of add_u32 into one three-input add, so
+that op times the step y <- y + x, not one add instruction; a mad_wide_u32
+step is one IMAD.WIDE.U32 with y as its addend. `step_sass` counts what a
+step executes in the built library, `MIN_PIPE_SLOTS` says what it needs at
+the least, and tools/torch_alu_probe_alternatives.py holds csrc/probes.cu's
+design against the ones it turned down (the note there says why).
 """
 from __future__ import annotations
 
 import ctypes
+import re
 
 import numpy as np
 import torch
 
+from ..utils import sass
 from . import gl64
 
 # op -> (code in csrc/probes.cu, dtype of x, dtype of out)
@@ -58,6 +63,43 @@ OPS = {
     "mad_wide_u32": (8, torch.int32, torch.int64),
 }
 KINDS = {"u8": 0, "tf32": 1}
+
+# Issue slots a step needs at the least on an SM's 64-lane integer
+# multiply-add pipe (fma_f32: on its 128 float32 lanes): the fewest machine
+# instructions that compute the step, not what the assembler emits
+# (`step_sass` counts that). An add or a compare can also run on the second
+# 64-lane integer pipe, so it counts as half. None: the assembler merges two
+# steps of add_u32 into one three-input add and spreads them over both
+# pipes, so its steps/s is the rate of the step y <- y + x and no
+# instruction's rate; it gets no share. The one table of these counts:
+# chip_smoke.py's bound and tools/torch_vpu_microbench.py read it.
+MIN_PIPE_SLOTS = {
+    "mul_u32": 1,
+    "add_u32": None,
+    "shift_add_u32": 1,
+    "cmp_add_u32": 1,      # compare + add, two pipes
+    "fma_f32": 1,
+    "cvt_u32_f32": 2.5,    # two converts + add
+    "mul_lo_u64": 3,       # one wide, two narrow multiplies
+    "mul_hi_u64": 4,       # four wide multiplies
+    "mad_wide_u32": 1,     # one IMAD.WIDE.U32 with the 64-bit y as its addend
+}
+# The chain loop's `#pragma unroll` in csrc/probes.cu: a pass of the loop
+# runs CHAIN_UNROLL x ilp steps.
+CHAIN_UNROLL = 64
+# What a step of the kept chain loop is designed to execute, by op and
+# chains a thread, by opcode as `sass.step_counts` counts it: a mad_wide_u32
+# step is one IMAD.WIDE.U32 with the 64-bit y as its addend. With four
+# chains its factor x sits in an odd register (R5), the design this unroll
+# was kept for: with both factors even, as at an unroll of 8 to 32, the
+# step takes 2.5 IMAD slots and not 2 (csrc/probes.cu says more). With four
+# chains ptxas also moves six registers a pass (the chains' registers
+# rotate at the loop's back edge); with one chain x is even. chip_smoke.py
+# fails if the built library differs, so that a change of the assembler
+# shows.
+STEP_SASS = {"mad_wide_u32": {
+    1: {"IMAD.WIDE.U32 (both factors even)": 1.0},
+    4: {"IMAD.WIDE.U32": 1.0, "MOV": 6 / (4 * CHAIN_UNROLL)}}}
 MMA_BLOCK_COLS = 8192   # columns a block of the mma probe takes
 
 # Kernel launches since a count was last set to 0, by kernel.
@@ -197,6 +239,31 @@ def alu_probe(x: torch.Tensor, op: str, chain: int = 512, ilp: int = 1) -> torch
     _launch("alu_probe", x, lambda stream: lib.alu_probe(
         code, ilp, x.data_ptr(), out.data_ptr(), x.numel(), chain, stream))
     return out
+
+
+_ALU_KERNEL = re.compile(r"alu_probe_kernelILi(\d+)ELi(\d+)E")
+
+
+def alu_kernel_key(kernel: str):
+    """(op, ilp) of an alu_probe kernel's mangled name, None for another."""
+    m = _ALU_KERNEL.search(kernel)
+    if m is None:
+        return None
+    code, ilp = int(m.group(1)), int(m.group(2))
+    return next(op for op, (c, _, _) in OPS.items() if c == code), ilp
+
+
+def step_sass(listing, unroll: int = CHAIN_UNROLL) -> dict:
+    """{(op, ilp): `sass.step_counts` of the kernel's chain loop} for every
+    alu_probe kernel of a listing (`sass.listings` of a built library): the
+    longest loop, whose every pass runs `unroll` x ilp steps."""
+    found = {}
+    for kernel, ins in listing.items():
+        key = alu_kernel_key(kernel)
+        if key is not None:
+            body = max(sass.loops(ins), key=len, default=[])
+            found[key] = sass.step_counts(body, unroll * key[1])
+    return found
 
 
 # ------------------------------------------------------------------ mma_probe

@@ -271,3 +271,127 @@ def test_mma_fragment_plan_chains_the_products_in_registers(kind):
         got = _emulate_mma_probe(kind, y[:, c:c + 16].astype(np.int64),
                                  M.astype(np.int64), 30)
         assert (got == want[:, c:c + 16]).all()
+
+
+# ---- what a step of a chain loop executes, counted from cuobjdump's listing
+# Short listings in cuobjdump -sass's form: a chain loop of one
+# IMAD.WIDE.U32 a step with the 64-bit y as its addend (ilp 1, two steps a
+# pass, the factor x in an even register beside the even low word of y;
+# ilp 4, one step of each chain a pass, x odd), and the split the assembler
+# made of the same step before (four steps of one chain a pass: a product
+# with RZ as its addend, the low add, and one high add for two steps).
+_SASS_ONE_WIDE_ILP1 = """
+	code for sm_90a
+		Function : _Z16alu_probe_kernelILi8ELi1EEvPKN4StepIXT_EE1XEPNS1_1YExi
+	.headerflags	@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                 /* 0x00000a00ff017b82 */
+                                                                          /* 0x000fe20000000800 */
+        /*0080*/                   IMAD.WIDE.U32 R2, R4, R2, R2 ;         /* 0x0000000004027225 */
+        /*0090*/                   VIADD R6, R6, 0x2 ;
+        /*00a0*/                   IMAD.WIDE.U32 R2, R4.reuse, R2, R2 ;
+        /*00b0*/                   ISETP.NE.AND P0, PT, R6, R7, PT ;
+        /*00c0*/              @P0 BRA 0x80 ;
+        /*00d0*/                   STG.E.64 desc[UR4][R4.64], R2 ;
+        /*00e0*/                   EXIT ;
+        /*00f0*/                   BRA 0xf0;
+"""
+_SASS_ONE_WIDE_ILP4 = """
+		Function : _Z16alu_probe_kernelILi8ELi4EEvPKN4StepIXT_EE1XEPNS1_1YExi
+        /*0080*/                   IMAD.WIDE.U32 R2, R5, R2, R2 ;
+        /*0090*/                   IMAD.WIDE.U32 R8, R5, R8, R8 ;
+        /*00a0*/                   IADD3 R6, R6, 0x1, RZ ;
+        /*00b0*/                   IMAD.WIDE.U32 R10, R5, R10, R10 ;
+        /*00c0*/                   ISETP.GE.AND P0, PT, R6, UR4, PT ;
+        /*00d0*/                   IMAD.WIDE.U32 R12, R5, R12, R12 ;
+        /*00e0*/             @!P0 BRA 0x80 ;
+        /*00f0*/                   EXIT ;
+"""
+_SASS_SPLIT_ILP1 = """
+		Function : _Z16alu_probe_kernelILi8ELi1EEvPKN4StepIXT_EE1XEPNS1_1YExi
+        /*0100*/                   IMAD.WIDE.U32 R8, R2, R0, RZ ;
+        /*0110*/                   IADD3 R2, P0, R8, R2, RZ ;
+        /*0120*/                   IMAD.WIDE.U32 R10, R2, R0, RZ ;
+        /*0130*/                   IADD3 R2, P1, R10, R2, RZ ;
+        /*0140*/                   IADD3.X R3, R3, R9, R11, P0, P1 ;
+        /*0150*/                   IMAD.WIDE.U32 R8, R2, R0, RZ ;
+        /*0160*/                   IADD3 R2, P0, R8, R2, RZ ;
+        /*0170*/                   IMAD.WIDE.U32 R10, R2, R0, RZ ;
+        /*0180*/                   IADD3 R2, P1, R10, R2, RZ ;
+        /*0190*/                   IADD3.X R3, R3, R9, R11, P0, P1 ;
+        /*01a0*/                   IADD3 R6, R6, -0x4, RZ ;
+        /*01b0*/                   ISETP.NE.AND P2, PT, R6, RZ, PT ;
+        /*01c0*/               @P2 BRA 0x100 ;
+        /*01d0*/                   EXIT ;
+"""
+
+
+# a step with a compare of its own (cmp_add_u32: y + (y < x)), which is the
+# step's and not the loop's
+_SASS_CMP_ADD_ILP1 = """
+		Function : _Z16alu_probe_kernelILi3ELi1EEvPKjPjxi
+        /*0080*/                   ISETP.GE.U32.AND P1, PT, R2, R0, PT ;
+        /*0090*/                   VIADD R6, R6, 0x2 ;
+        /*00a0*/              @!P1 VIADD R2, R2, 0x1 ;
+        /*00b0*/                   ISETP.GE.U32.AND P2, PT, R2, R0, PT ;
+        /*00c0*/                   ISETP.NE.AND P0, PT, R6, R7, PT ;
+        /*00d0*/              @!P2 VIADD R2, R2, 0x1 ;
+        /*00e0*/               @P0 BRA 0x80 ;
+        /*00f0*/                   EXIT ;
+"""
+
+
+@pytest.mark.parametrize("case", ["one_wide_ilp1", "one_wide_ilp4", "split_ilp1",
+                                  "cmp_add_ilp1"])
+def test_step_counts_from_a_sass_listing(case):
+    """The chain loop is found from its backward branch (not the trap loop
+    after EXIT), its control (the branch, the compare that writes the
+    branch's predicate, the counter that compare reads) is left out and a
+    compare of the step is kept, and a wide multiply-add is told apart by
+    its operands: RZ as its addend (2.5 instructions a step against one),
+    both factors in even registers."""
+    from stark_verifier_tpu_torch.utils import sass
+
+    text, op, unroll, ilp, want = {
+        "one_wide_ilp1": (_SASS_ONE_WIDE_ILP1, "mad_wide_u32", 2, 1,
+                          {"IMAD.WIDE.U32 (both factors even)": 1.0}),
+        "one_wide_ilp4": (_SASS_ONE_WIDE_ILP4, "mad_wide_u32", 1, 4, {"IMAD.WIDE.U32": 1.0}),
+        "split_ilp1": (_SASS_SPLIT_ILP1, "mad_wide_u32", 4, 1,
+                       {"IMAD.WIDE.U32 (zero addend)": 1.0, "IADD3": 1.0, "IADD3.X": 0.5}),
+        "cmp_add_ilp1": (_SASS_CMP_ADD_ILP1, "cmp_add_u32", 2, 1,
+                         {"ISETP.GE.U32.AND": 1.0, "VIADD": 1.0}),
+    }[case]
+    listing = sass.parse(text)
+    (kernel,) = listing
+    assert probes.alu_kernel_key(kernel) == (op, ilp)
+    (body,) = sass.loop_bodies(listing[kernel])
+    assert body[-1] == "BRA" and len(body) == unroll * ilp * sum(want.values()) + 3
+    counts = probes.step_sass(listing, unroll)[(op, ilp)]
+    assert counts["by_opcode"] == want
+    assert counts["instructions_a_step"] == sum(want.values())
+    assert counts["loop_control"] == 3
+    # the kept design at ilp 1; at ilp 4 it also moves two registers a pass
+    designed = counts["by_opcode"] == probes.STEP_SASS.get(op, {}).get(ilp)
+    assert designed == (case == "one_wide_ilp1")
+
+
+def test_one_table_of_least_slots_a_step():
+    """Every op has its least count in probes.MIN_PIPE_SLOTS, the bound of
+    chip_smoke.py reads it there (one IMAD.WIDE.U32 a mad_wide_u32 step),
+    the rate tool keeps no copy of its own, and the chain loop's unroll is
+    the one the SASS count divides by."""
+    import importlib.util
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parent.parent
+    assert set(probes.MIN_PIPE_SLOTS) == set(probes.OPS)
+    assert set(probes.STEP_SASS) <= set(probes.OPS)
+    assert all(set(by_ilp) == {1, 4} for by_ilp in probes.STEP_SASS.values())
+    assert probes.MIN_PIPE_SLOTS["mad_wide_u32"] == 1
+    spec = importlib.util.spec_from_file_location("chip_smoke", repo / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert smoke.MAD_WIDE_STEP_INSTRUCTIONS == probes.MIN_PIPE_SLOTS["mad_wide_u32"]
+    tool = (repo / "tools" / "torch_vpu_microbench.py").read_text()
+    assert "MIN_PIPE_SLOTS = {" not in tool and "probes.MIN_PIPE_SLOTS" in tool
+    src = (repo / "stark_verifier_tpu_torch" / "ops" / "csrc" / "probes.cu").read_text()
+    assert f"#pragma unroll {probes.CHAIN_UNROLL}\n    for (int s = 0; s < chain;" in src

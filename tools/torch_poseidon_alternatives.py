@@ -589,7 +589,7 @@ def sass_counts(lib_path):
         executed = None
         if len(real) == 3:
             executed = len(ins) + sum(n * (t - 1) for n, t in zip(real, (4, 22, 4)))
-        ops = collections.Counter(o for _, o, _ in ins)
+        ops = collections.Counter(o for _, o, _, _ in ins)
         result[k] = {"static": len(ins), "loop_bodies": real,
                      "executed_a_thread": executed,
                      "loads": {o: n for o, n in ops.items() if o.startswith(("LD", "ULD"))},

@@ -51,30 +51,6 @@ MMA_USEFUL_OPS = 2 * 12 * 12 * 8
 MMA_EXECUTED_OPS = {"u8": 2 * 16 * 8 * 16, "tf32": 2 * 2 * 16 * 8 * 8}
 MMA_INSTRUCTIONS = {"u8": 1, "tf32": 2}
 
-# Instructions a step needs at the least on an SM's 64-lane integer
-# multiply-add pipe (fma_f32: on its 128 float32 lanes): the fewest machine
-# instructions that compute the step, not what the assembler emitted (this
-# tool prints that). An add or a compare can also run on the second 64-lane
-# integer pipe, so it counts as half. None: the assembler merges two steps
-# of add_u32 into one three-input add and spreads them over both pipes, so
-# its steps/s is the rate of the step y <- y + x and no instruction's rate;
-# it gets no share.
-MIN_PIPE_SLOTS = {
-    "mul_u32": 1,
-    "add_u32": None,
-    "shift_add_u32": 1,
-    "cmp_add_u32": 1,      # compare + add, two pipes
-    "fma_f32": 1,
-    "cvt_u32_f32": 2.5,    # two converts + add
-    "mul_lo_u64": 3,       # one wide, two narrow multiplies
-    "mul_hi_u64": 4,       # four wide multiplies
-    # one IMAD.WIDE.U32 with the 64-bit y as its addend, the rule
-    # chip_smoke.py's bound counts by too; the built loop body executes 2.5
-    # a step (IMAD.WIDE.U32 with a zero addend, the 64-bit add as IADD3 and
-    # half an IADD3.X: 32 + 32 + 16 for 32 steps at ilp 4)
-    "mad_wide_u32": 1,
-}
-
 
 def cuda_ms(fn, reps):
     for _ in range(3):
@@ -99,17 +75,17 @@ def smi(query):
 
 def sass_histogram():
     """Machine-instruction counts of every kernel in the probes' library, by
-    opcode with its modifiers: of the whole kernel (a loop body unrolled 8
-    times, so about 8 steps a chain, its remainder loop, prologue and
-    epilogue), and of its longest loop body alone, which is what a step of
-    the timed chain executes: divide it by 8 x ilp steps."""
+    opcode with its modifiers: of the whole kernel (a loop body unrolled
+    probes.CHAIN_UNROLL times, its remainder loop, prologue and epilogue),
+    and of its longest loop body alone, which is what the timed chain
+    executes in CHAIN_UNROLL x ilp steps (probes.step_sass divides it)."""
     listing = sass.listings(cuda_build._target("probes"))
     if listing is None:
         return None
     result = {}
     for k, ins in listing.items():
         body = max(sass.loop_bodies(ins), key=len, default=[])
-        result[k] = {"whole": dict(collections.Counter(o for _, o, _ in ins).most_common(8)),
+        result[k] = {"whole": dict(collections.Counter(o for _, o, _, _ in ins).most_common(8)),
                      "loop_body": dict(collections.Counter(body).most_common())}
     return result
 
@@ -134,7 +110,7 @@ def main():
     rng = np.random.default_rng(11)
     n = sms * 2048 * 4
     for op in probes.OPS:
-        slots = MIN_PIPE_SLOTS[op]
+        slots = probes.MIN_PIPE_SLOTS[op]
         small = probes.alu_input(op, 4096, rng, "cuda")
         big = probes.alu_input(op, n, rng, "cuda")
         # the reference counts its convert chain as chain / 2 round trips
