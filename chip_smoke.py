@@ -47,7 +47,21 @@ needs one CUDA card (built for Hopper, sm_90a), `nvcc`, and no network. It
      bridge launches and 2 Poseidon launches a batch (the public-input
      hash) and no other kernel, challenges equal to the CPU path's, proof 0
      through make_verifier_fn with the same bit, and ms a batch;
-  8. prints one JSON line per phase, the kernels' line, and as the last line
+  8. drives the multi-rank verifier on a world of one rank (NCCL): the zk20
+     batch of 1024 through make_sharded_verifier (batch in lanes), clean and
+     corrupted, with its accept count and the digest chain (3,072
+     permutations of one lane, counted), the digest equal to the same chain
+     run on the CPU with the plain permutation; make_batch_verifier on 64
+     proofs;
+  9. runs the NTT on the card: coset_lde (rate 3, shift 7) of the prover's
+     three degree-2^13 shapes ([1080 | 160 | 128, 2^13] -> 2^16 points a
+     row), rows checked against the numpy oracle, intt(ntt(x)) == x, and
+     ntt_4step on the one-rank world equal to ntt;
+ 10. turns proof 0 of the zk20 and of the wrapped fixture into plonky2's
+     bytes and JSON and back, verifies the decoded proofs on the card (a
+     flipped opening rejected), and checks that bytes decoded with the other
+     circuit's CommonData raise;
+ 11. prints one JSON line per phase, the kernels' line, and as the last line
      {"ok": true, "device": {...}}.
 
 Any failure ends the run with a non-zero exit code and no "ok" line. There
@@ -56,23 +70,31 @@ not build, launch or agree, the script fails.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import functools
 import json
+import multiprocessing
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from stark_verifier_tpu_torch.core import plonky2_io
 from stark_verifier_tpu_torch.core import verifier as V
 from stark_verifier_tpu_torch.core.types import load_proofs
 from stark_verifier_tpu_torch.models import flagship as FS
 from stark_verifier_tpu_torch.ops import cuda_build, gl64, hashers, probes
 from stark_verifier_tpu_torch.ops import poseidon_bn254_kernel as bk
 from stark_verifier_tpu_torch.ops import poseidon_gl as pg
+from stark_verifier_tpu_torch.ops import ntt, ntt_np
 from stark_verifier_tpu_torch.ops import poseidon_kernel as pk
+from stark_verifier_tpu_torch.parallel import batch_verify as PB
+from stark_verifier_tpu_torch.parallel.mesh import make_mesh
+from stark_verifier_tpu_torch.parallel.multihost import init_distributed
 from stark_verifier_tpu_torch.utils import sass
 from stark_verifier_tpu_torch.utils.roofline import graph_ms
 
@@ -894,6 +916,205 @@ def phase_wrapped(device, rows):
           "peak_device_bytes": torch.cuda.max_memory_allocated()})
 
 
+def cpu_digest(pis_u64, ok):
+    """digest_chain on the CPU with the plain permutation, in a process of
+    its own (some 20 ms a permutation there): uint64 [4]."""
+    torch.set_num_threads(1)
+    F = gl64.Field("cpu")
+    return F.to_u64(PB.digest_chain(F, F.from_u64(pis_u64), torch.from_numpy(ok),
+                                    permute=pg.permute_plain))
+
+
+def phase_sharded(device):
+    """The multi-rank verifier on a world of one rank. NCCL init and every
+    collective run for real (a failure fails the phase); two ranks cannot
+    share one card under NCCL, so the multi-rank legs (worlds 2 to 4, an
+    uneven split, an empty rank) are the CPU tests' (gloo). The digests'
+    CPU replays run in two processes beside the card's work."""
+    store = Path(tempfile.mkdtemp()) / "store"
+    check(init_distributed(f"file://{store}", 1, 0),  # device="cuda": nccl
+          "init_distributed returned False")
+    check(torch.distributed.get_backend() == "nccl", "the backend is not nccl")
+    mesh = make_mesh(axis="data")
+    proofs, common, vk = load_fixture()
+    while len(proofs) < BATCH:
+        proofs = proofs + proofs
+    batched = FS.batched_arrays(proofs[:BATCH])
+    lanes = [3, BATCH // 10, BATCH // 2, BATCH * 7 // 10, BATCH - 24]
+    bad = corrupt(batched, lanes)
+    expect = torch.ones(BATCH, dtype=torch.bool)
+    expect[lanes] = False
+    pis_u64 = batched["public_inputs"]
+    pool = concurrent.futures.ProcessPoolExecutor(
+        2, mp_context=multiprocessing.get_context("spawn"))
+    cpu_jobs = [pool.submit(cpu_digest, pis_u64, ok.numpy())
+                for ok in (torch.ones(BATCH, dtype=torch.bool), expect)]
+
+    shard, verify_fn, agg_fn = PB.make_sharded_verifier(common, vk, mesh, batched=True)
+    pa, pa_bad = shard(batched), shard(bad)
+    default = pk.KERNELS[pk._use_mxu()]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    ok = verify_fn(pa)
+    torch.cuda.synchronize()
+    verify_ms = (time.perf_counter() - t0) * 1e3
+    verify_launches = pk.LAUNCHES[default]
+    reset_counts()
+    t0 = time.perf_counter()
+    digests, count = agg_fn(pa["public_inputs"], ok)
+    torch.cuda.synchronize()
+    agg_ms = (time.perf_counter() - t0) * 1e3
+    agg_launches = dict(pk.LAUNCHES)
+    check(torch.equal(ok.cpu(), torch.ones(BATCH, dtype=torch.bool)),
+          f"sharded: {int((~ok).sum())} honest proofs were rejected")
+    check(verify_launches == sum(ZK20_LAUNCHES_BY_LANES.values()),
+          f"sharded: {verify_launches} launches in the local verify")
+    check(count == BATCH and tuple(digests.shape) == (1, 4)
+          and digests.dtype == torch.int64,
+          f"sharded: count {count}, digests {tuple(digests.shape)} {digests.dtype}")
+    rows_perms = -(-(common.num_public_inputs + 5) // pg.RATE)
+    check(agg_launches[default] == rows_perms * BATCH
+          and sum(agg_launches.values()) == agg_launches[default],
+          f"sharded: the digest chain launched {agg_launches}")
+    # the chain's permutations by lane count
+    lane_counts = []
+
+    def recording(F_, state):
+        lane_counts.append(state.numel() // 12)
+        return pg.permute(F_, state)
+
+    F = gl64.Field(device)
+    again = PB.digest_chain(F, pa["public_inputs"], ok, permute=recording)
+    chain_by_lanes = {n: lane_counts.count(n) for n in sorted(set(lane_counts))}
+    check(chain_by_lanes == {1: rows_perms * BATCH} and torch.equal(again, digests[0]),
+          f"sharded: digest chain by lanes {chain_by_lanes}")
+    ok_bad = verify_fn(pa_bad)
+    d_bad, count_bad = agg_fn(pa_bad["public_inputs"], ok_bad)
+    check(torch.equal(ok_bad.cpu(), expect),
+          f"sharded: rejected lanes {torch.nonzero(~ok_bad.cpu()).flatten().tolist()}, "
+          f"expected {lanes}")
+    check(count_bad == BATCH - len(lanes), f"sharded: count {count_bad} on the corrupted batch")
+
+    # the per-proof form over the mesh, 64 proofs
+    fn64 = PB.make_batch_verifier(common, vk, mesh)
+    small = {k: v[:64] for k, v in bad.items()}
+    t0 = time.perf_counter()
+    ok64, d64, count64 = fn64(shard(small))
+    torch.cuda.synchronize()
+    batch_verifier_ms = (time.perf_counter() - t0) * 1e3
+    want64 = expect[:64]
+    check(torch.equal(ok64.cpu(), want64) and count64 == int(want64.sum()),
+          f"make_batch_verifier: bits {ok64.tolist()}, count {count64}")
+    check(torch.equal(d64[0], PB.digest_chain(F, pa_bad["public_inputs"][:64], want64.to(device))),
+          "make_batch_verifier: digest differs from the chain over its rows")
+
+    # the CPU replays, plain permutation
+    cpu_clean, cpu_bad = [job.result(timeout=600) for job in cpu_jobs]
+    pool.shutdown()
+    check(np.array_equal(gl64.to_u64(digests[0]), cpu_clean),
+          "sharded: digest differs from the CPU chain with the plain permutation")
+    check(np.array_equal(gl64.to_u64(d_bad[0]), cpu_bad),
+          "sharded: corrupted batch's digest differs from the CPU chain")
+    emit({"phase": "sharded", "backend": "nccl", "world": 1, "batch": BATCH,
+          "accepted": count, "accepted_corrupted": count_bad, "rejected_lanes": lanes,
+          "verify_launches": verify_launches,
+          "digest_chain_launches_by_lanes": chain_by_lanes,
+          "digest": [int(x) for x in gl64.to_u64(digests[0])],
+          "equal_to_cpu_plain": True, "verify_fn_ms": verify_ms, "agg_fn_ms": agg_ms,
+          "batch_verifier": {"proofs": 64, "accepted": count64, "ms": batch_verifier_ms,
+                             "ms_per_proof": batch_verifier_ms / 64}})
+
+
+# the prover's coset LDEs at degree 2^13 (tools/bench_lde_backends.py:39-45)
+NTT_SHAPES = [1080, 160, 128]
+NTT_BITS, NTT_RATE, NTT_SHIFT = 13, 3, 7
+
+
+def phase_ntt(device):
+    """coset_lde of the three shapes on the card: 8 rows each against the
+    numpy oracle, intt(ntt(x)) == x, timed by CUDA events; ntt_4step on the
+    one-rank world (phase_sharded's) equal to ntt."""
+    rng = np.random.default_rng(SEED + 3)
+    n = 1 << NTT_BITS
+    out_n = n << NTT_RATE
+    by_shape = {}
+    x = None
+    for rows in NTT_SHAPES:
+        del x
+        torch.cuda.empty_cache()
+        x_np = rng.integers(0, gl64.P, size=(rows, n), dtype=np.uint64)
+        x = gl64.from_u64(x_np, device)
+        lde = ntt.coset_lde(x, NTT_RATE, NTT_SHIFT)
+        torch.cuda.synchronize()
+        check(tuple(lde.shape) == (rows, out_n), f"coset_lde shape {tuple(lde.shape)}")
+        want = ntt_np.coset_lde(x_np[:8], NTT_RATE, NTT_SHIFT)
+        check(np.array_equal(gl64.to_u64(lde[:8]), want),
+              f"coset_lde [{rows}, 2^{NTT_BITS}] differs from the numpy oracle")
+        del lde
+        check(torch.equal(ntt.intt(ntt.ntt(x)), x), f"intt(ntt(x)) != x at {rows} rows")
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: ntt.coset_lde(x, NTT_RATE, NTT_SHIFT), 3)
+        ntt_ms = cuda_ms(lambda: ntt.ntt(x), 3)
+        by_shape[f"{rows}x2^{NTT_BITS}"] = {
+            "coset_lde_ms": ms, "points_per_s": rows * out_n / (ms * 1e-3),
+            "output_bytes": rows * out_n * 8, "ntt_ms": ntt_ms,
+            "ntt_points_per_s": rows * n / (ntt_ms * 1e-3),
+            "peak_device_bytes": torch.cuda.max_memory_allocated()}
+    mesh = make_mesh(axis="data")
+    four = ntt.ntt_4step(x, mesh)
+    check(torch.equal(four, ntt.ntt(x)), "ntt_4step on one rank differs from ntt")
+    four_ms = cuda_ms(lambda: ntt.ntt_4step(x, mesh), 3)
+    emit({"phase": "ntt", "rate_bits": NTT_RATE, "shift": NTT_SHIFT,
+          "checked_rows": 8, "equal_to_numpy": True, "inverse_exact": True,
+          "by_shape": by_shape, "ntt_4step": {"world": 1, "shape": list(x.shape),
+                                              "equal_to_ntt": True, "ms": four_ms}})
+
+
+def phase_codec(device):
+    """plonky2's bytes and JSON, out and back, for proof 0 of the zk20 and of
+    the wrapped fixture; the decoded proofs verified on the card."""
+    out, loaded = {}, {}
+    for path in (FIXTURE, WRAPPED):
+        proofs, common, vk = load_proofs(path)
+        loaded[path.name] = (proofs[0], common)
+        want = V.proof_to_arrays(proofs[0])
+        t0 = time.perf_counter()
+        data = plonky2_io.proof_to_bytes(proofs[0])
+        text = plonky2_io.proof_to_json(proofs[0])
+        from_bytes = plonky2_io.proof_from_bytes(data, common)
+        from_json = plonky2_io.proof_from_json(text)
+        codec_ms = (time.perf_counter() - t0) * 1e3
+        for name, decoded in (("bytes", from_bytes), ("json", from_json)):
+            got = V.proof_to_arrays(decoded)
+            check(got.keys() == want.keys()
+                  and all(np.array_equal(got[k], want[k]) for k in want),
+                  f"{path.name}: the {name} round trip changed the proof's arrays")
+        flipped = plonky2_io.proof_from_bytes(data, common)
+        flipped.openings.wires[0, 0] ^= np.uint64(1)
+        flipped = plonky2_io.proof_from_bytes(plonky2_io.proof_to_bytes(flipped), common)
+        fn, to_device = FS.make_verifier_fn(common, vk)  # device="cuda"
+        t0 = time.perf_counter()
+        ok = fn(to_device(FS.batched_arrays([from_bytes, from_json, flipped])))
+        torch.cuda.synchronize()
+        verify_s = (time.perf_counter() - t0) / 3
+        check(ok.tolist() == [True, True, False],
+              f"{path.name}: decoded proofs gave {ok.tolist()}, expected "
+              f"[True, True, False]")
+        out[path.name] = {"bytes": len(data), "json_chars": len(text),
+                          "encode_decode_ms": codec_ms, "verify_s_per_proof": verify_s}
+    (zk_proof, zk_common), (w_proof, w_common) = loaded.values()
+    for proof, other in ((zk_proof, w_common), (w_proof, zk_common)):
+        try:
+            plonky2_io.proof_from_bytes(plonky2_io.proof_to_bytes(proof), other)
+        except ValueError:
+            continue
+        fail("proof bytes decoded with another circuit's CommonData")
+    emit({"phase": "codec", "round_trip_equal": True, "decoded_verified_on_card": True,
+          "flipped_opening_rejected": True, "mismatched_common_raises": True,
+          "by_fixture": out})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device: this script runs on the GPU only",
@@ -908,10 +1129,13 @@ def main():
                         (phase_main_path, (device, rows)),
                         (phase_per_proof, (device,)),
                         (phase_bridge_kernel, (device, rows)),
-                        (phase_wrapped, (device, rows))):
+                        (phase_wrapped, (device, rows)),
+                        (phase_sharded, (device,)), (phase_ntt, (device,)),
+                        (phase_codec, (device,))):
         t0 = time.time()
         phase(*args)
         seconds[phase.__name__[len("phase_"):]] = round(time.time() - t0, 1)
+    torch.distributed.destroy_process_group()
     emit({"phase": "seconds", "by_phase": seconds,
           "total": round(time.time() - t_start, 1)})
     keys = ("name", "route", "source", "replaces", "addition", "launches",

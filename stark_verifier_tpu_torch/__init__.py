@@ -2,6 +2,7 @@
 
 A batched verifier for plonky2/FRI proofs over the Goldilocks field, for an
 NVIDIA Hopper GPU. Same sub-layout and module names as the JAX package
-(`ops/`, `core/`, `models/`, `utils/`); it imports `torch` and `numpy` only.
+(`ops/`, `core/`, `models/`, `parallel/`, `utils/`); it imports `torch` and
+`numpy` only.
 Entry points take an explicit `device` and default to "cuda".
 """

@@ -71,6 +71,21 @@ class FriParams:
         return 1 << (self.degree_bits - sum(self.reduction_arity_bits))
 
 
+def constant_arity_bits(arity_bits: int, final_poly_bits: int, degree_bits: int,
+                        rate_bits: int, cap_height: int = 0) -> List[int]:
+    """plonky2 FriReductionStrategy::ConstantArityBits::reduction_arity_bits:
+    fold by 2^arity_bits until the polynomial has at most 2^final_poly_bits
+    coefficients, and while the next layer's LDE domain still has at least
+    cap_height levels (its Merkle tree must be at least cap_height tall)."""
+    out = []
+    d = degree_bits
+    while d > final_poly_bits and d + rate_bits - arity_bits >= cap_height:
+        assert d >= arity_bits
+        out.append(arity_bits)
+        d -= arity_bits
+    return out
+
+
 @dataclass
 class SelectorsInfo:
     selector_indices: List[int]
@@ -264,6 +279,37 @@ class Proof:
     openings: OpeningSet
     opening_proof: FriProof
     public_inputs: np.ndarray                # [num_public_inputs]
+
+
+def save_proofs(path, proofs: List[Proof], common: CommonData, vk: VerifierOnlyData):
+    """The fixture format load_proofs reads: one compressed .npz of the
+    proofs' arrays stacked along a leading axis, the verifying key, and the
+    common data's JSON as bytes."""
+    qr = [p.opening_proof.query_rounds for p in proofs]
+    arrs = {
+        "wires_cap": np.stack([p.wires_cap for p in proofs]),
+        "zs_pp_cap": np.stack([p.plonk_zs_partial_products_cap for p in proofs]),
+        "quotient_cap": np.stack([p.quotient_polys_cap for p in proofs]),
+    }
+    for f in ("constants", "plonk_sigmas", "wires", "plonk_zs", "plonk_zs_next",
+              "partial_products", "quotient_polys"):
+        arrs["open_" + f] = np.stack([getattr(p.openings, f) for p in proofs])
+    arrs["commit_phase_caps"] = np.stack(
+        [p.opening_proof.commit_phase_caps for p in proofs])
+    arrs["final_poly"] = np.stack([p.opening_proof.final_poly for p in proofs])
+    arrs["pow_witness"] = np.stack(
+        [np.asarray(p.opening_proof.pow_witness) for p in proofs])
+    for o in range(4):
+        arrs[f"init_evals_{o}"] = np.stack([q.initial_evals[o] for q in qr])
+        arrs[f"init_sibs_{o}"] = np.stack([q.initial_siblings[o] for q in qr])
+    for i in range(len(qr[0].step_evals)):
+        arrs[f"step_evals_{i}"] = np.stack([q.step_evals[i] for q in qr])
+        arrs[f"step_sibs_{i}"] = np.stack([q.step_siblings[i] for q in qr])
+    arrs["public_inputs"] = np.stack([p.public_inputs for p in proofs])
+    arrs["vk_cap"] = vk.constants_sigmas_cap
+    arrs["vk_digest"] = vk.circuit_digest
+    arrs["common_json"] = np.frombuffer(common.to_json().encode(), dtype=np.uint8)
+    np.savez_compressed(path, **arrs)
 
 
 def load_proofs(path):

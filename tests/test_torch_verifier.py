@@ -219,12 +219,17 @@ def test_package_imports_without_jax():
         "from stark_verifier_tpu_torch.models import flagship\n"
         "from stark_verifier_tpu_torch.core import verifier, verifier_batched, challenger, merkle, gates\n"
         "from stark_verifier_tpu_torch.ops import poseidon_kernel, probes, cuda_build, hashers\n"
+        "from stark_verifier_tpu_torch.ops import ntt, ntt_np, poseidon_spec\n"
+        "from stark_verifier_tpu_torch.core import plonky2_io\n"
+        "from stark_verifier_tpu_torch.parallel import multihost, mesh, batch_verify\n"
+        "from stark_verifier_tpu_torch import entry\n"
         "from stark_verifier_tpu_torch.utils import roofline\n"
         "import importlib.util, pathlib\n"
         "scripts = sorted(pathlib.Path('tools').glob('torch_*.py')) + [pathlib.Path('chip_smoke.py')]\n"
         "names = {p.name for p in scripts}\n"
         "assert {'torch_profile_main_path.py', 'torch_vpu_microbench.py',\n"
-        "        'torch_bench_poseidon_kernels.py', 'chip_smoke.py'} <= names, names\n"
+        "        'torch_bench_poseidon_kernels.py', 'torch_multihost_smoke.py',\n"
+        "        'torch_cross_check.py', 'chip_smoke.py'} <= names, names\n"
         "for path in scripts:\n"
         "    spec = importlib.util.spec_from_file_location(path.stem, path)\n"
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
