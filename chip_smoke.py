@@ -61,8 +61,27 @@ needs one CUDA card (built for Hopper, sm_90a), `nvcc`, and no network. It
      bytes and JSON and back, verifies the decoded proofs on the card (a
      flipped opening rejected), and checks that bytes decoded with the other
      circuit's CommonData raise;
- 11. prints one JSON line per phase, the kernels' line, and as the last line
+ 11. proves on the card: a 2^20-member access set (its keys hashed in one
+     Poseidon launch of 2^20 lanes, its tree of 20 levels; the root equal
+     to the same tree built with the plain permutation, 8 Merkle paths
+     verified), the Semaphore circuit (degree 2^9, 135 wires, its verifying
+     key equal to the CPU build's), 64 distinct signals at the Semaphore
+     preset through prove_batch (proofs a second, ms by stage, Poseidon
+     launches by lane count, peak device bytes), all 64 accepted by the
+     batched verifier on the card and a flipped opening rejected, and
+     AccessSet.verify_signals_np on the card accepting a signal and
+     rejecting one with a changed topic; 2 signals proved with the kernel,
+     with the plain permutation on the card and on the CPU (a spawned
+     process beside the card's work) give equal proofs,
+     whose grind witnesses are the lowest a CPU scan finds; the three
+     Poseidon kernels held against the plain version and timed at the
+     prover's widest lane counts (262,144, 524,288, 1,048,576);
+ 12. prints one JSON line per phase, the kernels' line, and as the last line
      {"ok": true, "device": {...}}.
+
+`--only PHASE[,PHASE...]` runs the device and build phases and the named
+ones, and ends with a line that says the run was partial, not the "ok"
+line.
 
 Any failure ends the run with a non-zero exit code and no "ok" line. There
 is no fallback: without a card, without nvcc, or with a kernel that does
@@ -85,6 +104,8 @@ import torch
 
 from stark_verifier_tpu_torch.core import plonky2_io
 from stark_verifier_tpu_torch.core import verifier as V
+from stark_verifier_tpu_torch.core.challenger import Challenger
+from stark_verifier_tpu_torch.core.merkle import MerkleTree, verify_merkle_proof_to_cap
 from stark_verifier_tpu_torch.core.types import load_proofs
 from stark_verifier_tpu_torch.models import flagship as FS
 from stark_verifier_tpu_torch.ops import cuda_build, gl64, hashers, probes
@@ -95,6 +116,8 @@ from stark_verifier_tpu_torch.ops import poseidon_kernel as pk
 from stark_verifier_tpu_torch.parallel import batch_verify as PB
 from stark_verifier_tpu_torch.parallel.mesh import make_mesh
 from stark_verifier_tpu_torch.parallel.multihost import init_distributed
+from stark_verifier_tpu_torch.prover import prove as PV
+from stark_verifier_tpu_torch.semaphore import access_set as AS
 from stark_verifier_tpu_torch.utils import sass
 from stark_verifier_tpu_torch.utils.roofline import graph_ms
 
@@ -711,7 +734,7 @@ def phase_main_path(device, rows):
           f"the default entry point launched {pk.LAUNCHES} in {reps} batches")
     ms = float(np.median(times)) * 1e3
     for name in pk.KERNELS:
-        rows[name]["launches"] = launches[name]
+        rows.setdefault(name, {})["launches"] = launches[name]
     emit({"phase": "main_path", "fixture": FIXTURE.name, "distinct": distinct,
           "batch": BATCH, "wires": common.config.num_wires,
           "queries": cfg.num_query_rounds, "degree_bits": common.degree_bits,
@@ -868,7 +891,7 @@ def phase_wrapped(device, rows):
           and all(c == 0 for k, c in counts.items()
                   if k not in ("bridge_permute12", default)),
           f"launches in one wrapped batch: {counts}")
-    rows["bridge_permute12"]["launches"] = counts["bridge_permute12"]
+    rows.setdefault("bridge_permute12", {})["launches"] = counts["bridge_permute12"]
     ok_bad = fn(pa_bad)
     check(torch.equal(ok_bad.cpu(), expect),
           f"rejected lanes {torch.nonzero(~ok_bad.cpu()).flatten().tolist()}, "
@@ -1115,29 +1138,289 @@ def phase_codec(device):
           "by_fixture": out})
 
 
+# the prover's cell: a 2^20-member access set, 64 signals at the Semaphore
+# preset; the Poseidon kernels' widest launches there
+PROVE_BITS = 20
+PROVE_BATCH = 64
+PROVE_LANES = [PROVE_BATCH * 4096, PROVE_BATCH * 8192, 1 << PROVE_BITS]
+PROVE_SEEDS = (SEED + 11, SEED + 12)  # the witness and the salt rngs
+
+
+def recorder(lane_counts, permute=pg.permute):
+    """A permutation that records every call's lane count."""
+    def recording(F_, state):
+        lane_counts.append(state.numel() // 12)
+        return permute(F_, state)
+    return recording
+
+
+def prove_rngs():
+    return {"witness_rng": np.random.default_rng(PROVE_SEEDS[0]),
+            "salt_rng": np.random.default_rng(PROVE_SEEDS[1])}
+
+
+def transcript_before_grind(F, common, vk, proof):
+    """The verifier's transcript of one proof, replayed with a plain
+    Challenger up to the proof-of-work witness (not observed)."""
+    pa = V.arrays_to_backend(F, V.proof_to_arrays(proof))
+    pis = list(pa["public_inputs"])
+    ch = Challenger(F, permute=pg.permute_plain)
+    for e in F.from_u64(vk.circuit_digest):
+        ch.observe_element(e)
+    for e in pg.hash_no_pad(F, pis, permute=pg.permute_plain):
+        ch.observe_element(e)
+
+    def cap(c):
+        ch.observe_elements([c[r, i] for r in range(c.shape[0]) for i in range(4)])
+
+    nc = common.config.num_challenges
+    cap(pa["wires_cap"])
+    ch.get_n_challenges(2 * nc)
+    cap(pa["zs_pp_cap"])
+    ch.get_n_challenges(nc)
+    cap(pa["quotient_cap"])
+    ch.get_n_challenges(2)
+    for b in V._opening_batches(F, pa):
+        for e in b:
+            ch.observe_elements([e[0], e[1]])
+    ch.get_n_challenges(2)
+    for i in range(pa["commit_phase_caps"].shape[0]):
+        cap(pa["commit_phase_caps"][i])
+        ch.get_n_challenges(2)
+    ch.observe_elements([x for row in pa["final_poly"] for x in row])
+    return ch
+
+
+def lowest_pow_witness(F, common, vk, proof, tile=4096):
+    """The least w whose squeeze after observing it has the config's
+    leading zero bits: candidates scanned in order, the check a numpy
+    logical shift on the uint64 words."""
+    bits = common.config.fri_config.proof_of_work_bits
+    ch = transcript_before_grind(F, common, vk, proof)
+    base = 0
+    while True:
+        sim = Challenger(F, (tile,), permute=pg.permute_plain)
+        sim.state = [s.expand(tile) for s in ch.state]
+        sim.input_buffer = [x.expand(tile) for x in ch.input_buffer]
+        sim.observe_element(torch.arange(base, base + tile, dtype=torch.int64))
+        resp = F.to_u64(sim.get_challenge())
+        hits = np.nonzero((resp >> np.uint64(64 - bits)) == 0)[0]
+        if hits.size:
+            return base + int(hits[0])
+        base += tile
+
+
+def cpu_prove(inputs, batch):
+    """On the CPU, in a process of its own: the Semaphore circuit built,
+    `batch` signals proved from `inputs` with the seeded rngs, and each
+    proof's lowest proof-of-work witness found by a scan. Returns (vk cap,
+    digest, the proofs' arrays, the scanned witnesses)."""
+    torch.set_num_threads(1)
+    data, _ = AS.build_semaphore_circuit(AS.semaphore_config(), PROVE_BITS,
+                                         device="cpu")
+    proofs = PV.prove_batch(data, inputs, batch, device="cpu", **prove_rngs())
+    F = gl64.Field("cpu")
+    scanned = [lowest_pow_witness(F, data.common, data.vk, p) for p in proofs]
+    return (data.vk.constants_sigmas_cap, data.vk.circuit_digest,
+            [V.proof_to_arrays(p) for p in proofs], scanned)
+
+
+def proof_arrays_equal(a, b):
+    return [k for k in a if not np.array_equal(np.asarray(a[k]), np.asarray(b[k]))]
+
+
+def phase_prove(device):
+    """The prover on the card (item 11 of the module's docstring)."""
+    rng = np.random.default_rng(SEED + 9)
+    n = 1 << PROVE_BITS
+    sks = rng.integers(0, gl64.P, size=(n, 4), dtype=np.uint64)
+    idx = rng.choice(n, size=PROVE_BATCH, replace=False)
+    topics = rng.integers(0, gl64.P, size=(PROVE_BATCH, 4), dtype=np.uint64)
+    check(len({tuple(t) for t in topics}) == PROVE_BATCH, "topics not distinct")
+    F = gl64.Field(device)
+    default = pk.KERNELS[pk._use_mxu()]
+    out = {}
+
+    # ---- 1. the access set: keys hashed, tree built, on the card
+    sk_dev = F.from_u64(sks)
+    set_lanes = []
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    pks = AS.AccessSet.public_key(sk_dev, permute=recorder(set_lanes))
+    aset = AS.AccessSet(pks, AS.semaphore_config(), permute=recorder(set_lanes))
+    root = aset.merkle_root  # synchronizes
+    out["access_set_ms"] = (time.perf_counter() - t0) * 1e3
+    check(pk.LAUNCHES[default] == len(set_lanes) == 1 + PROVE_BITS,
+          f"access set: {pk.LAUNCHES} launches for {len(set_lanes)} calls")
+    out["access_set_launches_by_lanes"] = {
+        k: set_lanes.count(k) for k in sorted(set(set_lanes))}
+    plain_tree = MerkleTree(AS.AccessSet.public_key(sk_dev, permute=pg.permute_plain),
+                            0, permute=pg.permute_plain)
+    check(np.array_equal(F.to_u64(plain_tree.cap[0]), root),
+          "access set: the root differs from the plain permutation's tree")
+    del plain_tree
+    probe = torch.from_numpy(idx[:8].astype(np.int64)).to(device)
+    sibs = aset.tree.prove_batch(probe)  # [8, 20, 4]
+    ok = verify_merkle_proof_to_cap(
+        F, list(pks[probe].T), [(probe >> k) & 1 for k in range(PROVE_BITS)],
+        [list(sibs[:, k].T) for k in range(PROVE_BITS)], aset.tree.cap,
+        torch.zeros(8, dtype=torch.int64, device=device))
+    check(bool(ok.all()), "access set: a Merkle path failed to verify")
+
+    # ---- 2. the circuit on the card; its CPU twin is built in the spawned
+    # process below, and compared when that returns
+    t0 = time.perf_counter()
+    data = aset.circuit()
+    out["circuit_build_ms"] = (time.perf_counter() - t0) * 1e3
+    common = data.common
+    check(common.degree_bits == 9 and common.config.num_wires == 135,
+          f"circuit: degree 2^{common.degree_bits}, {common.config.num_wires} wires")
+
+    # ---- 5 (started now). two signals on the CPU, beside the card's work
+    inputs2, _ = aset.signal_inputs(sks[idx[:2]], topics[:2], idx[:2])
+    pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    cpu_job = pool.submit(cpu_prove, inputs2, 2)
+
+    # ---- 3. 64 signals on the card, counted, then again timed
+    inputs, nullifiers = aset.signal_inputs(sks[idx], topics, idx)
+    lanes = []
+    torch.cuda.synchronize()
+    reset_counts()
+    counted = PV.prove_batch(data, inputs, PROVE_BATCH, permute=recorder(lanes),
+                             inner_permute=recorder(lanes), **prove_rngs())
+    torch.cuda.synchronize()
+    check(pk.LAUNCHES[default] == len(lanes)
+          and sum(pk.LAUNCHES.values()) == len(lanes)
+          and not any(bk.LAUNCHES.values()) and not any(probes.LAUNCHES.values()),
+          f"prove: {pk.LAUNCHES}, {bk.LAUNCHES} launches for {len(lanes)} calls")
+    launches = {k: lanes.count(k) for k in sorted(set(lanes))}
+    torch.cuda.reset_peak_memory_stats()
+    stages = {}
+    t0 = time.perf_counter()
+    proofs = PV.prove_batch(data, inputs, PROVE_BATCH, stage_ms=stages, **prove_rngs())
+    prove_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    for a, b in zip(counted, proofs):
+        check(not proof_arrays_equal(V.proof_to_arrays(a), V.proof_to_arrays(b)),
+              "prove: two runs under the same seeds differ")
+
+    # ---- 4. verified on the card; a flipped opening rejected
+    for b, p in enumerate(proofs):
+        check(np.array_equal(p.public_inputs,
+                             np.concatenate([root, nullifiers[b], topics[b]])),
+              f"prove: proof {b}'s public inputs are not root ‖ nullifier ‖ topic")
+    fn, to_device = FS.make_verifier_fn_batched(common, data.vk)  # device="cuda"
+    batched = FS.batched_arrays(proofs)
+    ok = fn(to_device(batched))
+    check(bool(ok.all()), f"prove: {int((~ok).sum())} of the card's proofs rejected")
+    bad = {k: v.copy() for k, v in batched.items()}
+    bad["open_wires"][5, 0, 0] ^= np.uint64(1)
+    expect = torch.ones(PROVE_BATCH, dtype=torch.bool)
+    expect[5] = False
+    ok_bad = fn(to_device(bad))
+    check(torch.equal(ok_bad.cpu(), expect),
+          f"prove: rejected {torch.nonzero(~ok_bad.cpu()).flatten().tolist()}, expected [5]")
+    signals = [AS.Signal(topics=topics[0], nullifier=nullifiers[0], proof=proofs[0]),
+               AS.Signal(topics=topics[1] ^ np.uint64(1), nullifier=nullifiers[1],
+                         proof=proofs[1])]
+    check(aset.verify_signals_np(signals) == [True, False],
+          "prove: verify_signals_np on the card did not accept signal 0 alone")
+
+    # ---- 5. two signals: kernel, plain permutation on the card, the CPU
+    two_kernel = PV.prove_batch(data, inputs2, 2, **prove_rngs())
+    before = dict(pk.LAUNCHES)
+    two_plain = PV.prove_batch(data, inputs2, 2, permute=pg.permute_plain,
+                               inner_permute=pg.permute_plain, **prove_rngs())
+    check(pk.LAUNCHES == before, "prove: the plain run launched a kernel")
+    # ---- 6. the kernels at the prover's lane counts (while the CPU works)
+    kernel_times = prove_kernels(device)
+    cpu_cap, cpu_digest_, cpu_arrays, scanned = cpu_job.result(timeout=900)
+    pool.shutdown()
+    check(np.array_equal(cpu_cap, data.vk.constants_sigmas_cap)
+          and np.array_equal(cpu_digest_, data.vk.circuit_digest),
+          "circuit: the card's verifying key differs from the CPU build's")
+    for b in range(2):
+        want = V.proof_to_arrays(two_kernel[b])
+        for name, got in (("plain on the card", V.proof_to_arrays(two_plain[b])),
+                          ("the CPU", cpu_arrays[b])):
+            diff = proof_arrays_equal(want, got)
+            check(not diff, f"prove: proof {b} differs from {name} in {diff}")
+        check(int(two_kernel[b].opening_proof.pow_witness) == scanned[b],
+              f"prove: grind witness {int(two_kernel[b].opening_proof.pow_witness)}"
+              f" is not the lowest, {scanned[b]}")
+    emit({"phase": "prove", "members": n, "batch": PROVE_BATCH,
+          "degree_bits": common.degree_bits, "wires": common.config.num_wires,
+          "queries": common.config.fri_config.num_query_rounds,
+          "pow_bits": common.config.fri_config.proof_of_work_bits,
+          "zero_knowledge": common.fri_params.hiding, **out,
+          "prove_s": prove_s, "proofs_per_s": PROVE_BATCH / prove_s,
+          "stage_ms": stages, "launches": len(lanes), "launches_by_lanes": launches,
+          "peak_device_bytes": peak, "accepted": int(ok.sum()), "rejected_lane": 5,
+          "equal_kernel_plain_cpu": True, "vk_equal_to_cpu": True,
+          "grind_witnesses": scanned, "kernels_by_lanes": kernel_times})
+
+
+def prove_kernels(device):
+    """The three Poseidon kernels against the plain version at the
+    prover's widest lane counts, and timed there in turns (device time,
+    CUDA-graph replay), each beside its bound."""
+    rng = np.random.default_rng(SEED + 10)
+    by_lanes = {}
+    for lanes in PROVE_LANES:
+        x = gl64.from_u64(edge_state(rng, lanes), device)
+        want = pk.permute_plain(x)
+        for mxu, name in enumerate(pk.KERNELS):
+            check(torch.equal(pk.permute(x, mxu), want),
+                  f"{name} != permute_plain at {lanes} lanes")
+        del want
+        timed = {}
+        for mxu in (0, 1, 2, 2, 1, 0):
+            t = graph_ms(lambda: pk.permute(x, mxu), 10)
+            name = pk.KERNELS[mxu]
+            timed[name] = min(t, timed.get(name, t))
+        bound = max(poseidon_bound_ms(lanes))
+        by_lanes[lanes] = {"bound_ms": bound, **{
+            name: {"ms": t, "share_of_bound": bound / t} for name, t in timed.items()}}
+    return by_lanes
+
+
+PHASES = ("poseidon_kernels", "probes", "main_path", "per_proof", "bridge_kernel",
+          "wrapped", "sharded", "ntt", "codec", "prove")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device: this script runs on the GPU only",
               file=sys.stderr)
         sys.exit(1)
+    only = None
+    if len(sys.argv) == 3 and sys.argv[1] == "--only":
+        only = sys.argv[2].split(",")
+        check(set(only) <= set(PHASES), f"unknown phase in {only}; phases: {PHASES}")
+    elif len(sys.argv) > 1:
+        fail(f"usage: {sys.argv[0]} [--only PHASE[,PHASE...]]")
     device = torch.device("cuda")
     t_start = time.time()
     name, smi_line = phase_device()
     rows, seconds = {}, {}
-    for phase, args in ((phase_build, ()), (phase_poseidon_kernels, (device, rows)),
-                        (phase_probes, (device, rows)),
-                        (phase_main_path, (device, rows)),
-                        (phase_per_proof, (device,)),
-                        (phase_bridge_kernel, (device, rows)),
-                        (phase_wrapped, (device, rows)),
-                        (phase_sharded, (device,)), (phase_ntt, (device,)),
-                        (phase_codec, (device,))):
+    args = {"build": (), "per_proof": (device,), "sharded": (device,),
+            "ntt": (device,), "codec": (device,), "prove": (device,)}
+    for phase in ("build",) + PHASES:
+        if only is not None and phase not in only + ["build"]:
+            continue
         t0 = time.time()
-        phase(*args)
-        seconds[phase.__name__[len("phase_"):]] = round(time.time() - t0, 1)
-    torch.distributed.destroy_process_group()
+        globals()["phase_" + phase](*args.get(phase, (device, rows)))
+        seconds[phase] = round(time.time() - t0, 1)
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
     emit({"phase": "seconds", "by_phase": seconds,
           "total": round(time.time() - t_start, 1)})
+    if only is not None:
+        print(smi_line, flush=True)
+        emit({"partial": only})
+        return
     keys = ("name", "route", "source", "replaces", "addition", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi_line, flush=True)

@@ -1,8 +1,8 @@
 """plonky2 custom-gate constraint evaluators, ring-generic.
 
 Each gate evaluates its unfiltered constraints over an abstract ring R
-(core/rings.py); the verifier instantiates R = GF(p^2) at zeta, and every
-gate but Poseidon also evaluates over R = GF(p) (BaseRing). This is the
+(core/rings.py); the verifier instantiates R = GF(p^2) at zeta, the
+prover's quotient and `prover/check.py` R = GF(p) (BaseRing). This is the
 registry of the twelve plonky2 gates the JAX package knows: Noop, Constant,
 PublicInput, BaseSum, Arithmetic, ArithmeticExtension, MulExtension,
 RandomAccess, Reducing, ReducingExtension, PoseidonMds and Poseidon.
@@ -12,7 +12,8 @@ coefficients into one tensor axis, so a constraint family costs one chain
 of tensor ops rather than one chain per constraint: evaluated constraint by
 constraint, the Poseidon gate alone would be tens of thousands of tiny
 device launches per batch. Over the base ring they are plain loops, as in
-the JAX package.
+the JAX package, but for Poseidon, whose 12 state words are stacked there
+too. `poseidon_witness_fill` computes a PoseidonGate row's 135 wires.
 """
 from __future__ import annotations
 
@@ -496,8 +497,7 @@ class PoseidonMdsGate(Gate):
 class PoseidonGate(Gate):
     """Full width-12 Poseidon permutation, in plonky2's fast-partial-round
     wire layout (plonky2 gates/poseidon.rs). 123 constraints. Evaluated in
-    the lane-stacked form over the extension ring, round by round and word
-    by word over the base ring."""
+    the lane-stacked form over either ring."""
 
     degree = 7
     num_constants = 0
@@ -536,9 +536,9 @@ class PoseidonGate(Gate):
         return self.START_FULL_1 + T * R_F_HALF  # = 135
 
     def eval_unfiltered(self, R, C, W, pi):
-        if not isinstance(R, ExtRing):
-            raise TypeError("PoseidonGate evaluates over the extension ring only")
-        return _poseidon_eval_vectorized(self, R, W)
+        if isinstance(R, ExtRing):
+            return _poseidon_eval_vectorized(self, R, W)
+        return _poseidon_eval_base(self, R, W)
 
 
 # ------------------------------------------------------------------ registry
@@ -660,6 +660,11 @@ def _horner_accs(F, W, start_accs, n):
 
 
 # ------------------------------------------------ vectorized Poseidon eval
+def _const_rows(F, vals, lead, nd):
+    """u64 constants -> int64[*lead, 1...] broadcasting over nd lane dims."""
+    return F.from_u64(np.asarray(vals, np.uint64).reshape(lead + (1,) * nd))
+
+
 def _poseidon_eval_vectorized(gate, R, W):
     """PoseidonGate constraints with the 12 state lanes stacked into one
     tensor axis; the round loops are plain Python loops."""
@@ -683,8 +688,7 @@ def _poseidon_eval_vectorized(gate, R, W):
     nd = se[0].dim() - 1
 
     def cvec(vals, *lead):
-        """u64 constants -> int64[*lead, 1...] broadcasting over the lanes."""
-        return F.from_u64(np.asarray(vals, np.uint64).reshape(lead + (1,) * nd))
+        return _const_rows(F, vals, lead, nd)
 
     def sbox(x):
         x2 = ext2.mul(F, x, x)
@@ -751,3 +755,112 @@ def _poseidon_eval_vectorized(gate, R, W):
     outs = _se_stack(F, [W[gate.wire_output(i)] for i in range(T)])
     out.extend(_se_unstack(F, ext2.sub(F, se, outs)))
     return out
+
+
+def _sbox_base(F, x):
+    x2 = F.mul(x, x)
+    return F.mul(F.mul(x2, x), F.mul(x2, x2))
+
+
+def _partial_rounds_base(F, s, nd, on_round):
+    """plonky2's fast partial rounds on a stacked state int64[12, ...]:
+    the forwarded constants, the initial matrix, then R_P sparse rounds.
+    `on_round(r, s0)` gives the s-box input of round r (a wire over the
+    base ring, the state word itself for the witness fill) and may record
+    it; returns the state after the last round."""
+    s = F.add(s, _const_rows(F, FAST_PARTIAL_FIRST_ROUND_CONSTANT, (T,), nd))
+    Mg = _const_rows(F, FAST_PARTIAL_ROUND_INITIAL_MATRIX, (T - 1, T - 1), nd)
+    s = F.concat([s[:1], F.sum_axis0(F.mul(Mg, s[1:, None]))], axis=0)
+    whats = _const_rows(F, FAST_PARTIAL_ROUND_W_HATS, (R_P, T - 1), nd)
+    vs = _const_rows(F, FAST_PARTIAL_ROUND_VS, (R_P, T - 1), nd)
+    # the last round's constant is 0: adding it is plonky2's skip
+    prc = _const_rows(F, FAST_PARTIAL_ROUND_CONSTANTS, (R_P,), nd)
+    mds0to0 = MDS_MATRIX_CIRC[0] + MDS_MATRIX_DIAG[0]
+    for r in range(R_P):
+        s0 = F.add(_sbox_base(F, on_round(r, s[0])), prc[r])
+        tail = s[1:]
+        d = F.add(F.mul_small(s0, mds0to0), F.sum_axis0(F.mul(whats[r], tail)))
+        s = F.concat([d[None], F.add(F.mul(vs[r], s0), tail)], axis=0)
+    return s
+
+
+def _poseidon_eval_base(gate, R, W):
+    """PoseidonGate constraints over the base ring, the 12 state words
+    stacked into one tensor axis; the same constraints in the same order
+    as the extension form."""
+    F = R.F
+    out = []
+    swap = W[gate.WIRE_SWAP]
+    out.append(R.sub(R.mul(swap, swap), swap))
+    for i in range(4):
+        diff = R.sub(W[gate.wire_input(i + 4)], W[gate.wire_input(i)])
+        out.append(R.sub(R.mul(swap, diff), W[gate.wire_delta(i)]))
+    words = [None] * T
+    for i in range(4):
+        words[i] = R.add(W[gate.wire_input(i)], W[gate.wire_delta(i)])
+        words[i + 4] = R.sub(W[gate.wire_input(i + 4)], W[gate.wire_delta(i)])
+    for i in range(8, T):
+        words[i] = W[gate.wire_input(i)]
+    s = F.stack(words)
+    nd = s.dim() - 1
+    rc = _const_rows(F, ALL_ROUND_CONSTANTS, (30, T), nd)
+
+    def full_rounds(s, rows, first_round):
+        for k, row in enumerate(rows):
+            w = F.stack(row)
+            out.extend(F.unstack(F.sub(F.add(s, rc[first_round + k]), w)))
+            s = F.mds12(_sbox_base(F, w))
+        return s
+
+    s = F.mds12(_sbox_base(F, F.add(s, rc[0])))
+    s = full_rounds(s, [[W[gate.wire_full_sbox_0(r, i)] for i in range(T)]
+                        for r in range(1, R_F_HALF)], 1)
+
+    def partial_wire(r, s0):
+        w = W[gate.wire_partial_sbox(r)]
+        out.append(F.sub(s0, w))
+        return w
+
+    s = _partial_rounds_base(F, s, nd, partial_wire)
+    s = full_rounds(s, [[W[gate.wire_full_sbox_1(r, i)] for i in range(T)]
+                        for r in range(R_F_HALF)], R_F_HALF + R_P)
+    out.extend(F.unstack(F.sub(s, F.stack([W[gate.wire_output(i)]
+                                           for i in range(T)]))))
+    return out
+
+
+def poseidon_witness_fill(F, inputs, swap):
+    """All 135 PoseidonGate wires of one gate row for a batch: `inputs` are
+    the 12 input words and `swap` the swap bit, tensors of one shape S (or
+    broadcasting to it). Returns (wires int64[135, *S], the 12 output
+    words), canonical. The permutation runs in plonky2's fast-partial-round
+    form, whose s-box inputs are the wires the gate records."""
+    g = PoseidonGate()
+    ins = F.stack(list(inputs) + [swap])
+    ins, sw = ins[:T], ins[T]
+    nd = ins.dim() - 1
+    deltas = F.mul(sw, F.sub(ins[4:8], ins[0:4]))
+    s = F.concat([F.add(ins[0:4], deltas), F.sub(ins[4:8], deltas), ins[8:]], axis=0)
+    rc = _const_rows(F, ALL_ROUND_CONSTANTS, (30, T), nd)
+    full_0, partial, full_1 = [], [], []
+    for r in range(R_F_HALF):
+        s = F.add(s, rc[r])
+        if r:
+            full_0.append(s)
+        s = F.mds12(_sbox_base(F, s))
+
+    def record(r, s0):
+        partial.append(s0)
+        return s0
+
+    s = _partial_rounds_base(F, s, nd, record)
+    for r in range(R_F_HALF):
+        s = F.add(s, rc[R_F_HALF + R_P + r])
+        full_1.append(s)
+        s = F.mds12(_sbox_base(F, s))
+    # wire order: inputs, outputs, swap, deltas, full rounds 1..3 of the
+    # first half, the partial s-box inputs, the second half's full rounds
+    wires = F.canonical(F.concat(
+        [ins, s, sw[None], deltas] + full_0 + [F.stack(partial)] + full_1, axis=0))
+    assert wires.shape[0] == g.num_wires_used()
+    return wires, F.unstack(wires[g.wire_output(0):g.wire_output(0) + T])

@@ -1,22 +1,33 @@
-"""The flagship pipeline: batched Semaphore-proof verification on the GPU.
+"""The flagship pipeline: Semaphore proofs proved and verified on the GPU.
 
-Loads a batch of Semaphore proofs from a fixture (core/types.load_proofs),
-stacks them along a leading batch axis, and exposes the verifier over int64
-tensors on a device: batch-in-lanes (`make_verifier_fn_batched`, the unit
-of throughput) or proof by proof (`make_verifier_fn`, and
+Proves a batch of Semaphore signals over an access set on a device
+(`build_semaphore_batch`; `build_dryrun_batch` proves the small multichip
+dryrun circuit) or loads one from a fixture (core/types.load_proofs),
+stacks the proofs along a leading batch axis, and exposes the verifier
+over int64 tensors on a device: batch-in-lanes (`make_verifier_fn_batched`,
+the unit of throughput) or proof by proof (`make_verifier_fn`, and
 `make_verifier_fn_phased`, which runs the three protocol phases apart).
 All three take the same batched dict and return the accept bits bool[B];
 chip_smoke.py drives them.
 """
 from __future__ import annotations
 
+from pathlib import Path
+
 import numpy as np
 import torch
 
 from ..core import verifier as V
 from ..core import verifier_batched as VB
-from ..core.types import CircuitConfig, FriConfig
+from ..core.merkle import MerkleTree
+from ..core.types import CircuitConfig, FriConfig, load_proofs, save_proofs
 from ..ops import gl64
+from ..prover.builder import CircuitBuilder
+from ..prover.builder import require_device as _require_device
+from ..prover.prove import prove_batch
+from ..semaphore.access_set import AccessSet
+
+FIXTURE_DIR = Path(__file__).resolve().parent.parent.parent / "fixtures"
 
 
 def small_config() -> CircuitConfig:
@@ -36,19 +47,93 @@ def bench_config() -> CircuitConfig:
     )
 
 
+def build_semaphore_batch(n_members_bits=8, batch=8, config=None, min_degree=0,
+                          cache_tag=None, seed=0, device="cuda", cache_dir=None,
+                          witness_rng=None, salt_rng=None):
+    """(proofs, common, vk): `batch` Semaphore signals over one access set
+    of 2^n_members_bits keys, proved on `device`. Keys, indices and topics
+    come from `seed`, drawn as the JAX package draws them; the rngs are
+    prove_batch's. With a `cache_tag` the proofs are read from, or written
+    to, `cache_dir`/sem_<tag>.npz. With a `cache_tag` or a `cache_dir`, a
+    set of 2^16 keys or more keeps its hashed keys and tree in
+    `cache_dir`/aset_tree_<bits>_<seed>.npz; with neither, nothing is read
+    or written. `cache_dir` defaults to the repo's fixtures/."""
+    caching = bool(cache_tag) or cache_dir is not None
+    cache_dir = Path(cache_dir) if cache_dir is not None else FIXTURE_DIR
+    if cache_tag and (cache_dir / f"sem_{cache_tag}.npz").exists():
+        return load_proofs(cache_dir / f"sem_{cache_tag}.npz")
+    device = _require_device(device)
+    rng = np.random.default_rng(seed)
+    n = 1 << n_members_bits
+    sks = rng.integers(0, gl64.P, size=(n, 4), dtype=np.uint64)
+    config = config or small_config()
+    tree_cache = (cache_dir / f"aset_tree_{n_members_bits}_{seed}.npz"
+                  if caching and n_members_bits >= 16 else None)
+    if tree_cache is not None and tree_cache.exists():
+        aset = AccessSet.from_tree(MerkleTree.load(tree_cache, device), config,
+                                   min_degree=min_degree)
+    else:
+        pks = AccessSet.public_key(gl64.from_u64(sks, device))
+        aset = AccessSet(pks, config, min_degree=min_degree, device=device)
+        if tree_cache is not None:
+            cache_dir.mkdir(parents=True, exist_ok=True)
+            aset.tree.save(tree_cache)
+    idx = rng.integers(0, n, size=batch)
+    topics = rng.integers(0, gl64.P, size=(batch, 4), dtype=np.uint64)
+    signals = aset.make_signals(sks[idx], topics, idx, witness_rng=witness_rng,
+                                salt_rng=salt_rng)
+    proofs = [s.proof for s in signals]
+    data = aset.circuit()
+    if cache_tag:
+        cache_dir.mkdir(parents=True, exist_ok=True)
+        save_proofs(cache_dir / f"sem_{cache_tag}.npz", proofs, data.common, data.vk)
+    return proofs, data.common, data.vk
+
+
+def dryrun_config() -> CircuitConfig:
+    """The multichip dryrun's config: 2 FRI queries, cap 0, 8 wires, and
+    the public-input hash outside the gates, so no PoseidonGate."""
+    return CircuitConfig(
+        num_wires=8, num_routed_wires=8,
+        fri_config=FriConfig(rate_bits=3, cap_height=0, proof_of_work_bits=4,
+                             num_query_rounds=2),
+        pi_hash_in_circuit=False,
+    )
+
+
+def build_dryrun_batch(batch=16, cache_tag="dryrun3w8", device="cuda",
+                       cache_dir=None, witness_rng=None, salt_rng=None):
+    """(proofs, common, vk): a tiny arithmetic circuit (Arithmetic,
+    Constant, PublicInput and Noop gates) proved for `batch` lanes on
+    `device`: the multichip dryrun's workload. Caching as in
+    build_semaphore_batch."""
+    cache_dir = Path(cache_dir) if cache_dir is not None else FIXTURE_DIR
+    path = cache_dir / f"sem_{cache_tag}.npz" if cache_tag else None
+    if path is not None and path.exists():
+        proofs, common, vk = load_proofs(path)
+        if len(proofs) >= batch:
+            return proofs[:batch], common, vk
+    b = CircuitBuilder(dryrun_config(), device=device)
+    xs = b.add_virtual_targets(4)
+    acc = b.mul(xs[0], xs[1])
+    acc = b.arithmetic(3, 5, acc, xs[2], xs[3])
+    b.register_public_inputs(xs)
+    b.register_public_input(acc)
+    data = b.build()
+    rng = np.random.default_rng(7)
+    inputs = {t: rng.integers(0, gl64.P, size=batch, dtype=np.uint64) for t in xs}
+    proofs = prove_batch(data, inputs, batch, device=device,
+                         witness_rng=witness_rng, salt_rng=salt_rng)
+    if path is not None:
+        cache_dir.mkdir(parents=True, exist_ok=True)
+        save_proofs(path, proofs, data.common, data.vk)
+    return proofs, data.common, data.vk
+
+
 def batched_arrays(proofs) -> dict:
     """Stack per-proof arrays along a leading batch axis (u64 numpy)."""
     pas = [V.proof_to_arrays(p) for p in proofs]
     return {k: np.stack([pa[k] for pa in pas]) for k in pas[0]}
-
-
-def _require_device(device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "device 'cuda' was asked for and no CUDA device is available; "
-            "pass device='cpu' to run the plain PyTorch path")
-    return device
 
 
 def _bind(common, vk, device):

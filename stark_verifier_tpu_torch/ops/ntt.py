@@ -75,6 +75,13 @@ def coset_fft(x: torch.Tensor, shift: int) -> torch.Tensor:
     return ntt(gl64.mul(x, _powers(shift, x.shape[-1], x.device)))
 
 
+def coset_ifft(x: torch.Tensor, shift: int) -> torch.Tensor:
+    """The coefficients of p from its values over the coset shift * H: the
+    inverse NTT, then coefficient i times shift^-i."""
+    inv_powers = _powers(pow(shift, P - 2, P), x.shape[-1], x.device)
+    return gl64.canonical(gl64.mul(intt(x), inv_powers))
+
+
 def coset_lde(x: torch.Tensor, rate_bits: int, shift: int) -> torch.Tensor:
     """Zero-pad the coefficients by 2^rate_bits, evaluate over shift * H'."""
     n = x.shape[-1]

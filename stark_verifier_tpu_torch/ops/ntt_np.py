@@ -3,8 +3,9 @@ oracle the tensor NTT (ops/ntt.py) is held against.
 
 plonky2's conventions: `ntt` maps coefficients to evaluations over the
 size-n subgroup H in natural order (evals[j] = p(w^j)); `coset_fft(shift)`
-evaluates over shift * H; `lde` zero-pads the coefficients by the blowup
-factor. Every result is canonical. Pure numpy: no native library.
+evaluates over shift * H and `coset_ifft(shift)` inverts it; `lde`
+zero-pads the coefficients by the blowup factor. Every result is
+canonical. Pure numpy: no native library.
 """
 from __future__ import annotations
 
@@ -117,6 +118,13 @@ def coset_fft(coeffs: np.ndarray, shift: int) -> np.ndarray:
     """Evaluate p(shift * x) over H, i.e. p over the coset shift * H."""
     coeffs = np.asarray(coeffs, dtype=np.uint64)
     return ntt(mul(coeffs, powers(shift, coeffs.shape[-1])))
+
+
+def coset_ifft(evals: np.ndarray, shift: int) -> np.ndarray:
+    """The coefficients of p from its values over the coset shift * H: the
+    inverse NTT, then coefficient i times shift^-i."""
+    evals = np.asarray(evals, dtype=np.uint64)
+    return mul(intt(evals), powers(pow(shift, P - 2, P), evals.shape[-1]))
 
 
 def lde(coeffs: np.ndarray, rate_bits: int) -> np.ndarray:

@@ -95,12 +95,21 @@ def test_gate_over_the_base_ring(case):
 
 
 def test_poseidon_gate_refuses_the_base_ring():
-    """The Poseidon gate is ported over the extension ring only (the
-    verifier's ring); on the base ring it refuses rather than answer."""
-    tg = tgates.PoseidonGate()
-    w = [F.from_u64(np.zeros(N, np.uint64))] * tg.num_wires_used()
-    with pytest.raises(TypeError):
-        tg.eval_unfiltered(trings.BaseRing(F, (N,)), [], w, None)
+    """The Poseidon gate over the base ring, which the prover's quotient and
+    witness checker evaluate it on: the JAX package's constraint values on
+    random and edge wires, and on all-zero wires. (The name dates from when
+    the port's gate refused that ring; it is kept so that the test's record
+    runs on under one name.)"""
+    tg, jg = tgates.PoseidonGate(), jgates.PoseidonGate()
+    rng = np.random.default_rng(17)
+    for wires in (_values(rng, tg.num_wires_used()),
+                  np.zeros((tg.num_wires_used(), N), np.uint64)):
+        got = tg.eval_unfiltered(trings.BaseRing(F, (N,)), [],
+                                 [F.from_u64(x) for x in wires], None)
+        want = jg.eval_unfiltered(jrings.BaseRing(gl, (N,)), [], list(wires), None)
+        assert len(got) == len(want) == 123
+        assert (np.stack([F.to_u64(g) for g in got])
+                == np.stack(want) % np.uint64(P)).all()
 
 
 @pytest.mark.parametrize("ring", ["ExtRing", "BaseRing"])

@@ -222,6 +222,8 @@ def test_package_imports_without_jax():
         "from stark_verifier_tpu_torch.ops import ntt, ntt_np, poseidon_spec\n"
         "from stark_verifier_tpu_torch.core import plonky2_io\n"
         "from stark_verifier_tpu_torch.parallel import multihost, mesh, batch_verify\n"
+        "from stark_verifier_tpu_torch.prover import builder, prove, lde, check\n"
+        "from stark_verifier_tpu_torch.semaphore import access_set\n"
         "from stark_verifier_tpu_torch import entry\n"
         "from stark_verifier_tpu_torch.utils import roofline\n"
         "import importlib.util, pathlib\n"
