@@ -51,7 +51,7 @@ needs one CUDA card (built for Hopper, sm_90a), `nvcc`, and no network. It
      batch of 1024 through make_sharded_verifier (batch in lanes), clean and
      corrupted, with its accept count and the digest chain (3,072
      permutations of one lane, counted), the digest equal to the same chain
-     run on the CPU with the plain permutation; make_batch_verifier on 64
+     run on the CPU with the plain permutation; make_batch_verifier on 16
      proofs;
   9. runs the NTT on the card: coset_lde (rate 3, shift 7) of the prover's
      three degree-2^13 shapes ([1080 | 160 | 128, 2^13] -> 2^16 points a
@@ -76,7 +76,26 @@ needs one CUDA card (built for Hopper, sm_90a), `nvcc`, and no network. It
      whose grind witnesses are the lowest a CPU scan finds; the three
      Poseidon kernels held against the plain version and timed at the
      prover's widest lane counts (262,144, 524,288, 1,048,576);
- 12. prints one JSON line per phase, the kernels' line, and as the last line
+ 12. runs recursion on the card, on the prove phase's set and signals:
+     the two witness kernels (poseidon_gate_fill, ext2_reduce_chain)
+     against their plain versions at 1 to 1,025 lanes (edge words,
+     non-canonical swap bits, base and extension coefficients) and timed at
+     the lane counts the paths launch them at; the bn254 wrapper of the
+     zk20 circuit built on the card, its CommonData and verifying key equal
+     to sem_wrapped16.npz's, the fixture's first 16 zk20 proofs wrapped in
+     one prove_batch (stage ms, proofs a second, peak bytes, launches by
+     lane count of the bridge, Poseidon and the two witness kernels), every
+     wrapped proof equal to the fixture's array by array, all accepted by
+     the batched verifier on the card and a corrupted lane rejected, a child
+     with a flipped opening refused with WitnessConflict;
+     AccessSet.verify_signal True for a signal, False with a flipped opening
+     and with a forged nullifier; 4 signals aggregated at the reference's
+     strength (zero knowledge, two levels of degree 2^14, build and prove
+     seconds and stage ms a level), accepted by verify_aggregated on the
+     card and rejected with a flipped nullifier; aggregate_signals_np's
+     digest equal to the same tree on the CPU with the plain permutation,
+     its attestation rechecked, and rejected with a changed count;
+ 13. prints one JSON line per phase, the kernels' line, and as the last line
      {"ok": true, "device": {...}}.
 
 `--only PHASE[,PHASE...]` runs the device and build phases and the named
@@ -90,6 +109,7 @@ not build, launch or agree, the script fails.
 from __future__ import annotations
 
 import concurrent.futures
+import copy
 import functools
 import json
 import multiprocessing
@@ -102,6 +122,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from stark_verifier_tpu_torch.core import gates as G
 from stark_verifier_tpu_torch.core import plonky2_io
 from stark_verifier_tpu_torch.core import verifier as V
 from stark_verifier_tpu_torch.core.challenger import Challenger
@@ -116,8 +137,14 @@ from stark_verifier_tpu_torch.ops import poseidon_kernel as pk
 from stark_verifier_tpu_torch.parallel import batch_verify as PB
 from stark_verifier_tpu_torch.parallel.mesh import make_mesh
 from stark_verifier_tpu_torch.parallel.multihost import init_distributed
+from stark_verifier_tpu_torch.ops import witness_kernel as WK
 from stark_verifier_tpu_torch.prover import prove as PV
+from stark_verifier_tpu_torch.prover.builder import WitnessConflict
+from stark_verifier_tpu_torch.prover.recursion import recursion_config
 from stark_verifier_tpu_torch.semaphore import access_set as AS
+from stark_verifier_tpu_torch.semaphore import aggregate as SAGG
+from stark_verifier_tpu_torch.semaphore import attestation as SATT
+from stark_verifier_tpu_torch.semaphore import recursion as SREC
 from stark_verifier_tpu_torch.utils import sass
 from stark_verifier_tpu_torch.utils.roofline import graph_ms
 
@@ -214,6 +241,24 @@ BRIDGE_INT32_INSTR_PER_PERMUTATION = (
 # probes.MIN_PIPE_SLOTS, which tools/torch_vpu_microbench.py reads too.
 MAD_WIDE_STEP_INSTRUCTIONS = probes.MIN_PIPE_SLOTS["mad_wide_u32"]
 
+# The same count for one lane of poseidon_gate_fill (csrc/witness.cu), at the
+# Poseidon count's unit costs (field multiply 20, constant add 9, dense MDS
+# layer 410) and 3 a canonicalisation or a subtraction of canonical words:
+#   8 full rounds: 12 constant adds, 12 s-boxes (48 multiplies), one layer;
+#   the fast partial rounds: 12 constant adds before them, the 11 x 11
+#     initial matrix (121 multiplies and adds), then 22 rounds of an s-box
+#     (4 multiplies), a constant add, 11 w-hat and 11 v products with their
+#     adds and s0 * 25;
+#   the swap: 4 subtractions, multiplies, canonicalisations, an add and a
+#     subtraction; 135 wires canonicalised as they are stored.
+FILL_INT32_INSTR_PER_LANE = (
+    8 * (12 * 9 + 48 * 20 + 410) + 12 * 9 + 121 * (20 + 9)
+    + 22 * (4 * 20 + 9 + 22 * (20 + 9) + 20) + 4 * (3 + 20 + 3 + 9 + 3) + 135 * 3)
+FILL_BYTES_PER_LANE = (12 + 1 + 135) * 8
+# one Horner step of ext2_reduce_chain, one lane: 5 field multiplies (the
+# schoolbook product's four and the twist's x 7), 4 adds, 2 canonicalisations
+CHAIN_INT32_INSTR_PER_STEP = 5 * 20 + 4 * 9 + 2 * 3
+
 KERNEL_FILES = {
     "poseidon_permute": ("stark_verifier_tpu_torch/ops/csrc/poseidon_gl.cu",
                          "stark_verifier_tpu/ops/pallas/poseidon_kernel.py:331"),
@@ -229,8 +274,14 @@ KERNEL_FILES = {
     # Pallas call; its counterpart is named here
     "bridge_permute12": ("stark_verifier_tpu_torch/ops/csrc/poseidon_bn254.cu",
                          "stark_verifier_tpu/ops/fr_bn254_jax.py:321"),
+    # additions too: the JAX package's recursion prover computes these in
+    # host C planes, no Pallas call; their counterparts are named here
+    "poseidon_gate_fill": ("stark_verifier_tpu_torch/ops/csrc/witness.cu",
+                           "native/svt_poseidon.c:434"),
+    "ext2_reduce_chain": ("stark_verifier_tpu_torch/ops/csrc/witness.cu",
+                          "native/svt_poseidon.c:474"),
 }
-ADDITIONS = {"bridge_permute12"}
+ADDITIONS = {"bridge_permute12", "poseidon_gate_fill", "ext2_reduce_chain"}
 PERMUTES = {m: functools.partial(pg.permute, mxu=m) for m in (0, 1, 2)}
 
 EDGES = np.array(
@@ -300,6 +351,7 @@ def phase_build():
         pk._library(pk._HOME[kernel])
     probes._library()
     bk._library()
+    WK._library()
     seconds = time.time() - t0
     emit({"phase": "build", "sources": sorted(cuda_build.SOURCES.values()),
           "nvcc": cuda_build.nvcc_path(), "flags": cuda_build.NVCC_FLAGS,
@@ -598,7 +650,7 @@ def corrupt(batched, lanes):
 
 
 def reset_counts():
-    for counts in (pk.LAUNCHES, probes.LAUNCHES, bk.LAUNCHES):
+    for counts in (pk.LAUNCHES, probes.LAUNCHES, bk.LAUNCHES, WK.LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -948,6 +1000,12 @@ def cpu_digest(pis_u64, ok):
                                     permute=pg.permute_plain))
 
 
+# proofs of the sharded phase's make_batch_verifier leg: it verifies them
+# one by one (~3 s each), so it is cut from 64 to leave room in the
+# script's time limit for the recursion phase
+BATCH_VERIFIER_PROOFS = 16
+
+
 def phase_sharded(device):
     """The multi-rank verifier on a world of one rank. NCCL init and every
     collective run for real (a failure fails the phase); two ranks cannot
@@ -1019,17 +1077,20 @@ def phase_sharded(device):
           f"expected {lanes}")
     check(count_bad == BATCH - len(lanes), f"sharded: count {count_bad} on the corrupted batch")
 
-    # the per-proof form over the mesh, 64 proofs
-    fn64 = PB.make_batch_verifier(common, vk, mesh)
-    small = {k: v[:64] for k, v in bad.items()}
+    # the per-proof form over the mesh, on the first proofs (lane 3 corrupted)
+    n_pp = BATCH_VERIFIER_PROOFS
+    fn_pp = PB.make_batch_verifier(common, vk, mesh)
+    small = {k: v[:n_pp] for k, v in bad.items()}
     t0 = time.perf_counter()
-    ok64, d64, count64 = fn64(shard(small))
+    ok_pp, d_pp, count_pp = fn_pp(shard(small))
     torch.cuda.synchronize()
     batch_verifier_ms = (time.perf_counter() - t0) * 1e3
-    want64 = expect[:64]
-    check(torch.equal(ok64.cpu(), want64) and count64 == int(want64.sum()),
-          f"make_batch_verifier: bits {ok64.tolist()}, count {count64}")
-    check(torch.equal(d64[0], PB.digest_chain(F, pa_bad["public_inputs"][:64], want64.to(device))),
+    want_pp = expect[:n_pp]
+    check(not bool(want_pp.all()), "make_batch_verifier: no corrupted proof in its slice")
+    check(torch.equal(ok_pp.cpu(), want_pp) and count_pp == int(want_pp.sum()),
+          f"make_batch_verifier: bits {ok_pp.tolist()}, count {count_pp}")
+    check(torch.equal(d_pp[0], PB.digest_chain(F, pa_bad["public_inputs"][:n_pp],
+                                               want_pp.to(device))),
           "make_batch_verifier: digest differs from the chain over its rows")
 
     # the CPU replays, plain permutation
@@ -1045,8 +1106,8 @@ def phase_sharded(device):
           "digest_chain_launches_by_lanes": chain_by_lanes,
           "digest": [int(x) for x in gl64.to_u64(digests[0])],
           "equal_to_cpu_plain": True, "verify_fn_ms": verify_ms, "agg_fn_ms": agg_ms,
-          "batch_verifier": {"proofs": 64, "accepted": count64, "ms": batch_verifier_ms,
-                             "ms_per_proof": batch_verifier_ms / 64}})
+          "batch_verifier": {"proofs": n_pp, "accepted": count_pp, "ms": batch_verifier_ms,
+                             "ms_per_proof": batch_verifier_ms / n_pp}})
 
 
 # the prover's coset LDEs at degree 2^13 (tools/bench_lde_backends.py:39-45)
@@ -1350,6 +1411,9 @@ def phase_prove(device):
         check(int(two_kernel[b].opening_proof.pow_witness) == scanned[b],
               f"prove: grind witness {int(two_kernel[b].opening_proof.pow_witness)}"
               f" is not the lowest, {scanned[b]}")
+    RECURSION_INPUTS.update(aset=aset, signals=[
+        AS.Signal(topics=topics[b], nullifier=nullifiers[b], proof=proofs[b])
+        for b in range(RECURSION_SIGNALS)])
     emit({"phase": "prove", "members": n, "batch": PROVE_BATCH,
           "degree_bits": common.degree_bits, "wires": common.config.num_wires,
           "queries": common.config.fri_config.num_query_rounds,
@@ -1386,8 +1450,285 @@ def prove_kernels(device):
     return by_lanes
 
 
+# ------------------------------------------------------------- recursion
+RECURSION_SIGNALS = 4
+RECURSION_INPUTS: dict = {}   # the prove phase's access set and first signals
+WRAP_BATCH = 16
+FILL_LANES = [1, 16, 64, 1025]           # 1,025: a ragged count
+CHAIN_LANES = [1, 16, 64]
+CHAIN_STEPS = [1, 32, 43]
+# the lane counts at which a path launches the two witness kernels: one
+# signal's wrap and the top aggregation level (1), the first level's two
+# pairs (2), a wrap of 16, the prove phase's 64 signals
+WITNESS_PATH_LANES = [1, 2, WRAP_BATCH, PROVE_BATCH]
+
+
+def recursion_inputs(device):
+    """The prove phase's access set and first signals; under `--only
+    recursion`, the same set built here (its 2^20 keys from the same seed)
+    and RECURSION_SIGNALS signals proved with the seeded rngs."""
+    if not RECURSION_INPUTS:
+        rng = np.random.default_rng(SEED + 9)
+        n = 1 << PROVE_BITS
+        sks = rng.integers(0, gl64.P, size=(n, 4), dtype=np.uint64)
+        idx = rng.choice(n, size=PROVE_BATCH, replace=False)[:RECURSION_SIGNALS]
+        topics = rng.integers(0, gl64.P, size=(PROVE_BATCH, 4),
+                              dtype=np.uint64)[:RECURSION_SIGNALS]
+        aset = AS.AccessSet(AS.AccessSet.public_key(gl64.from_u64(sks, device)),
+                            AS.semaphore_config())
+        RECURSION_INPUTS.update(aset=aset, signals=aset.make_signals(
+            sks[idx], topics, idx, **prove_rngs()))
+    return RECURSION_INPUTS["aset"], RECURSION_INPUTS["signals"]
+
+
+def fill_bound_ms(lanes):
+    return (lanes * FILL_BYTES_PER_LANE / PEAK_BYTES_PER_S * 1e3,
+            lanes * FILL_INT32_INSTR_PER_LANE / PEAK_INT32_INSTR_PER_S * 1e3)
+
+
+def chain_bound_ms(lanes, k):
+    return (lanes * (4 + 4 * k) * 8 / PEAK_BYTES_PER_S * 1e3,
+            lanes * k * CHAIN_INT32_INSTR_PER_STEP / PEAK_INT32_INSTR_PER_S * 1e3)
+
+
+def witness_kernels(device):
+    """poseidon_gate_fill and ext2_reduce_chain against their plain versions
+    on the card (edge words, non-canonical ones among them; swap 0 and 1,
+    half of each as the non-canonical word p or p + 1; base and extension
+    coefficients), then timed at the lane counts the paths launch them at,
+    each beside its bound there: device time (50 launches replayed from a
+    CUDA graph) and the eager call's time (100 calls between CUDA events;
+    the wrapper's host work, where it is longer than the kernel)."""
+    rng = np.random.default_rng(SEED + 15)
+    fill, chain = {}, {}
+    for lanes in sorted(set(FILL_LANES + WITNESS_PATH_LANES)):
+        ins = gl64.from_u64(edge_state(rng, lanes), device)
+        for bit in (0, 1):
+            sw_np = np.full(lanes, bit, np.uint64)
+            sw_np[::2] += np.uint64(gl64.P)
+            sw = gl64.from_u64(sw_np, device)
+            got = WK.poseidon_gate_fill(ins, sw)
+            want, plain_ms = timed_plain(lambda: WK.poseidon_gate_fill_plain(ins, sw))
+            check(torch.equal(got, want),
+                  f"poseidon_gate_fill != its plain version at {lanes} lanes, swap {bit}")
+        t_bytes, t_ops = fill_bound_ms(lanes)
+        fill[lanes] = {"ms": graph_ms(lambda: WK.poseidon_gate_fill(ins, sw), 50),
+                       "call_ms": cuda_ms(lambda: WK.poseidon_gate_fill(ins, sw), 100),
+                       "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+                       "bound_bytes_ms": t_bytes, "bound_operations_ms": t_ops}
+    for lanes in sorted(set(CHAIN_LANES + WITNESS_PATH_LANES)):
+        for k in CHAIN_STEPS:
+            for ext in (False, True):
+                a, x = (gl64.from_u64(edge_state(rng, lanes)[:2], device) for _ in range(2))
+                c_np = np.stack([edge_state(rng, lanes)[:2] for _ in range(k)])
+                if not ext:
+                    c_np[:, 1] = 0
+                c = gl64.from_u64(c_np, device)
+                got = WK.ext2_reduce_chain(a, x, c)
+                want, plain_ms = timed_plain(lambda: WK.ext2_reduce_chain_plain(a, x, c))
+                check(torch.equal(got, want),
+                      f"ext2_reduce_chain != its plain version at {lanes} lanes, "
+                      f"k = {k}, {'extension' if ext else 'base'} coefficients")
+            t_bytes, t_ops = chain_bound_ms(lanes, k)
+            chain[f"{lanes}x{k}"] = {"ms": graph_ms(lambda: WK.ext2_reduce_chain(a, x, c), 50),
+                                     "call_ms": cuda_ms(lambda: WK.ext2_reduce_chain(a, x, c),
+                                                        100),
+                                     "plain_ms": plain_ms,
+                                     "bound_ms": max(t_bytes, t_ops),
+                                     "bound_bytes_ms": t_bytes, "bound_operations_ms": t_ops}
+    return fill, chain
+
+
+def gate_rows(data, *kinds):
+    return sum(1 for g, _ in data.builder.gate_rows if isinstance(g, kinds))
+
+
+def phase_recursion(device, rows):
+    """Recursion on the card: the witness kernels against their plain
+    versions; the bn254 wrapper of the zk20 circuit rebuilding
+    sem_wrapped16.npz; verify_signal; the aggregation tree at the
+    reference's strength; the digest aggregation and its attestation."""
+    out = {}
+    fill, chain = witness_kernels(device)
+
+    # ---- (a) the wrapper at full width, against the tracked fixture
+    zk_proofs, common, vk = load_fixture()
+    w_proofs, w_common, w_vk = load_proofs(WRAPPED)
+    t0 = time.perf_counter()
+    wrap = SREC.build_wrapper_circuit(common, hasher="bn254")  # device="cuda"
+    out["wrapper_build_s"] = time.perf_counter() - t0
+    wd = wrap.data
+    check(wd.common.to_json() == w_common.to_json(),
+          "wrapper: its CommonData differs from sem_wrapped16.npz's")
+    check(np.array_equal(wd.vk.circuit_digest, w_vk.circuit_digest)
+          and np.array_equal(wd.vk.constants_sigmas_cap, w_vk.constants_sigmas_cap),
+          "wrapper: its verifying key differs from sem_wrapped16.npz's")
+    bridge_lanes, poseidon_lanes, stages = [], [], {}
+    torch.cuda.synchronize()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    wrapped = wrap.prove(zk_proofs[:WRAP_BATCH], vk, stage_ms=stages,
+                         permute=recorder(bridge_lanes, hashers.bridge_permute),
+                         inner_permute=recorder(poseidon_lanes))
+    torch.cuda.synchronize()
+    wrap_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts = {**pk.LAUNCHES, **bk.LAUNCHES, **WK.LAUNCHES}
+    default = pk.KERNELS[pk._use_mxu()]
+    fills = gate_rows(wd, G.PoseidonGate)
+    chains = gate_rows(wd, G.ReducingGate, G.ReducingExtensionGate)
+    check(counts["bridge_permute12"] == len(bridge_lanes)
+          and counts[default] == len(poseidon_lanes)
+          and counts["poseidon_gate_fill"] == fills
+          and counts["ext2_reduce_chain"] == chains
+          and sum(counts.values()) == len(bridge_lanes) + len(poseidon_lanes) + fills + chains,
+          f"wrap: launches {counts} for {len(bridge_lanes)} bridge and "
+          f"{len(poseidon_lanes)} Poseidon calls, {fills} fill and {chains} chain rows")
+    for name in WK.KERNELS:
+        rows[name] = {"launches": counts[name]}
+    check(len(wrapped) == WRAP_BATCH, f"wrap: {len(wrapped)} proofs")
+    for b, (got, want) in enumerate(zip(wrapped, w_proofs)):
+        diff = proof_arrays_equal(V.proof_to_arrays(want), V.proof_to_arrays(got))
+        check(not diff, f"wrap: proof {b} differs from sem_wrapped16.npz's in {diff}")
+    fn, to_device = FS.make_verifier_fn_batched(wd.common, wd.vk)  # device="cuda"
+    batched = FS.batched_arrays(wrapped)
+    ok = fn(to_device(batched))
+    check(bool(ok.all()), f"wrap: {int((~ok).sum())} wrapped proofs rejected on the card")
+    bad = {k: v.copy() for k, v in batched.items()}
+    bad["open_wires"][5, 0, 0] ^= np.uint64(1)
+    expect = torch.ones(WRAP_BATCH, dtype=torch.bool)
+    expect[5] = False
+    ok_bad = fn(to_device(bad))
+    check(torch.equal(ok_bad.cpu(), expect),
+          f"wrap: rejected {torch.nonzero(~ok_bad.cpu()).flatten().tolist()}, expected [5]")
+    child = copy.deepcopy(zk_proofs[0])
+    child.openings.wires[0, 0] ^= np.uint64(1)
+    t0 = time.perf_counter()
+    try:
+        wrap.prove([child], vk)
+        fail("wrap: a child with a flipped opening was wrapped")
+    except WitnessConflict:
+        pass
+    out["witness_conflict_s"] = time.perf_counter() - t0
+    out["wrap"] = {
+        "batch": WRAP_BATCH, "degree_bits": wd.common.degree_bits,
+        "generators": len(wd.builder.generators),
+        "gate_rows": {name: gate_rows(wd, getattr(G, name)) for name in (
+            "PoseidonGate", "ArithmeticExtensionGate", "ArithmeticGate", "RandomAccessGate",
+            "ReducingGate", "ReducingExtensionGate", "ConstantGate", "NoopGate")},
+        "prove_s": wrap_s, "proofs_per_s": WRAP_BATCH / wrap_s, "stage_ms": stages,
+        "peak_device_bytes": peak,
+        "launches_by_lanes": {
+            "bridge_permute12": {n: bridge_lanes.count(n) for n in sorted(set(bridge_lanes))},
+            default: {n: poseidon_lanes.count(n) for n in sorted(set(poseidon_lanes))},
+            "poseidon_gate_fill": {WRAP_BATCH: fills},
+            "ext2_reduce_chain": {WRAP_BATCH: chains}},
+        "equal_to_fixture": True, "accepted_on_card": int(ok.sum()), "rejected_lane": 5}
+    del batched, bad, ok, ok_bad
+
+    # ---- (b) verify_signal on the prove phase's set and signal
+    aset, signals = recursion_inputs(device)
+    sd = aset.circuit()
+    if (sd.common.to_json() == common.to_json()
+            and np.array_equal(sd.vk.circuit_digest, vk.circuit_digest)):
+        aset._wrapper = wrap     # the same inner circuit: the wrapper built above
+    answers, answer_s = [], []
+    flipped = copy.deepcopy(signals[0])
+    flipped.proof.openings.wires[0, 0] ^= np.uint64(1)
+    forged = copy.deepcopy(signals[0])
+    forged.nullifier = forged.nullifier ^ np.uint64(1)
+    for sig in (signals[0], flipped, forged):
+        t0 = time.perf_counter()
+        answers.append(aset.verify_signal(sig))
+        answer_s.append(time.perf_counter() - t0)
+    check(answers == [True, False, False],
+          f"verify_signal: {answers} for (honest, flipped opening, forged nullifier)")
+    out["verify_signal"] = {"answers": answers, "seconds": answer_s,
+                            "wrapper_reused": aset._wrapper is wrap}
+
+    # ---- (c) aggregation of 4 signals at the reference's strength
+    cfg = recursion_config(aset.config.fri_config, zero_knowledge=True)
+    stats, agg_lanes = [], []
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    agg = SREC.aggregate_signals(
+        aset, signals[:RECURSION_SIGNALS], config=cfg, level_stats=stats,
+        witness_rng=np.random.default_rng(SEED + 13),
+        salt_rng=np.random.default_rng(SEED + 14),
+        permute=recorder(agg_lanes), inner_permute=recorder(agg_lanes))
+    torch.cuda.synchronize()
+    agg_s = time.perf_counter() - t0
+    # the Poseidon count also holds the two circuits' builds (their
+    # constants trees and digests), which the provers' recorder does not see
+    agg_launches = {**WK.LAUNCHES, default: pk.LAUNCHES[default]}
+    check(agg_launches["poseidon_gate_fill"] == sum(st["gate_rows"]["PoseidonGate"]
+                                                    for st in stats)
+          and agg_launches["ext2_reduce_chain"] == sum(
+              st["gate_rows"].get(g, 0) for st in stats
+              for g in ("ReducingGate", "ReducingExtensionGate"))
+          and agg_launches[default] > len(agg_lanes),
+          f"aggregation: launches {agg_launches} for {len(agg_lanes)} Poseidon calls "
+          f"in the provers and the levels' rows")
+    check([st["degree_bits"] for st in stats] == [14, 14],
+          f"aggregation: levels of degree 2^{[st['degree_bits'] for st in stats]}")
+    check(SREC.verify_aggregated(agg, aset.merkle_root),
+          "aggregation: verify_aggregated rejected the aggregate on the card")
+    nulls = agg.nullifiers.copy()
+    agg.nullifiers[2, 0] ^= np.uint64(1)
+    check(not SREC.verify_aggregated(agg, aset.merkle_root),
+          "aggregation: a flipped nullifier was accepted")
+    agg.nullifiers = nulls
+    out["aggregation"] = {"signals": RECURSION_SIGNALS, "zero_knowledge": True,
+                          "levels": stats, "seconds": agg_s,
+                          "launches": agg_launches,
+                          "prover_poseidon_launches_by_lanes": {
+                              n: agg_lanes.count(n) for n in sorted(set(agg_lanes))},
+                          "public_inputs": int(agg.proof.public_inputs.shape[0])}
+
+    # ---- (d) digest aggregation and the attestation
+    t0 = time.perf_counter()
+    res = SAGG.aggregate_signals_np(aset, signals[:RECURSION_SIGNALS])
+    check(res["accept"] == [True] * RECURSION_SIGNALS and res["count"] == RECURSION_SIGNALS,
+          f"aggregate_signals_np: {res['accept']}")
+    # on the CPU the tree's permutation is the plain version
+    cpu_digest_ = SAGG.aggregation_digest(aset, signals[:RECURSION_SIGNALS], res["accept"],
+                                          device="cpu")
+    check(np.array_equal(res["digest"], cpu_digest_),
+          "aggregate_signals_np: the digest differs from the CPU tree's")
+    att = SATT.make_attestation(aset, signals[:RECURSION_SIGNALS], oks=res["accept"])
+    check(SATT.recheck_attestation(att, aset, signals[:RECURSION_SIGNALS]),
+          "attestation: the recheck failed")
+    changed = json.loads(att)
+    changed["count"] -= 1
+    check(not SATT.recheck_attestation(json.dumps(changed), aset,
+                                       signals[:RECURSION_SIGNALS]),
+          "attestation: a changed count passed the recheck")
+    out["attestation"] = {"digest": [int(x) for x in res["digest"]], "bytes": len(att),
+                          "seconds": time.perf_counter() - t0}
+
+    # ---- the kernels' rows: the wrap's lane count, its launches
+    fb, fo = fill_bound_ms(WRAP_BATCH)
+    f16 = fill[WRAP_BATCH]
+    rows["poseidon_gate_fill"] = kernel_row(
+        "poseidon_gate_fill", f16["ms"], f16["plain_ms"], fb, fo, lanes=WRAP_BATCH,
+        by_lanes=fill, launches_per_aggregation=agg_launches["poseidon_gate_fill"])
+    rows["poseidon_gate_fill"]["launches"] = counts["poseidon_gate_fill"]
+    k = max(CHAIN_STEPS)
+    cb, co = chain_bound_ms(WRAP_BATCH, k)
+    c16 = chain[f"{WRAP_BATCH}x{k}"]
+    rows["ext2_reduce_chain"] = kernel_row(
+        "ext2_reduce_chain", c16["ms"], c16["plain_ms"], cb, co, lanes=WRAP_BATCH,
+        steps=k, by_lanes_and_steps=chain,
+        launches_per_aggregation=agg_launches["ext2_reduce_chain"])
+    rows["ext2_reduce_chain"]["launches"] = counts["ext2_reduce_chain"]
+    emit({"phase": "recursion", **out, "poseidon_gate_fill": rows["poseidon_gate_fill"],
+          "ext2_reduce_chain": rows["ext2_reduce_chain"]})
+
+
 PHASES = ("poseidon_kernels", "probes", "main_path", "per_proof", "bridge_kernel",
-          "wrapped", "sharded", "ntt", "codec", "prove")
+          "wrapped", "sharded", "ntt", "codec", "prove", "recursion")
 
 
 def main():

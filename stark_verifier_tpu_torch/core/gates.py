@@ -34,6 +34,7 @@ from ..ops._poseidon_gl_constants import (
     MDS_MATRIX_DIAG,
 )
 from .rings import (
+    BaseRing,
     ExtRing,
     alg_from_ring,
     alg_mul,
@@ -538,7 +539,9 @@ class PoseidonGate(Gate):
     def eval_unfiltered(self, R, C, W, pi):
         if isinstance(R, ExtRing):
             return _poseidon_eval_vectorized(self, R, W)
-        return _poseidon_eval_base(self, R, W)
+        if isinstance(R, BaseRing):
+            return _poseidon_eval_base(self, R, W)
+        return _poseidon_eval_generic(self, R, W)
 
 
 # ------------------------------------------------------------------ registry
@@ -829,15 +832,113 @@ def _poseidon_eval_base(gate, R, W):
     return out
 
 
-def poseidon_witness_fill(F, inputs, swap):
-    """All 135 PoseidonGate wires of one gate row for a batch: `inputs` are
-    the 12 input words and `swap` the swap bit, tensors of one shape S (or
-    broadcasting to it). Returns (wires int64[135, *S], the 12 output
-    words), canonical. The permutation runs in plonky2's fast-partial-round
-    form, whose s-box inputs are the wires the gate records."""
+def _poseidon_eval_generic(gate, R, W):
+    """PoseidonGate constraints one ring operation at a time, for a ring
+    whose elements are not tensors (prover/recursion.TargetExtRing, whose
+    operations emit gate rows): the JAX package's ring loop, its operations
+    in its order, so that an in-circuit verifier builds the same rows."""
+
+    def sbox(x):
+        x2 = R.square(x)
+        x3 = R.mul(x2, x)
+        x4 = R.square(x2)
+        return R.mul(x3, x4)
+
+    def mds_layer(state):
+        out = []
+        for r in range(T):
+            res = R.zero()
+            for i in range(T):
+                res = R.add(R.small_mul(MDS_MATRIX_CIRC[i], state[(i + r) % T]), res)
+            out.append(R.add(R.small_mul(MDS_MATRIX_DIAG[r], state[r]), res))
+        return out
+
+    def constant_layer(state, round_ctr):
+        return [R.add(s, R.const(ALL_ROUND_CONSTANTS[i + T * round_ctr]))
+                for i, s in enumerate(state)]
+
+    def mds_partial_layer_fast(state, r):
+        d = R.small_mul(MDS_MATRIX_CIRC[0] + MDS_MATRIX_DIAG[0], state[0])
+        for i in range(1, T):
+            t = R.const(FAST_PARTIAL_ROUND_W_HATS[r * (T - 1) + (i - 1)])
+            d = R.mul_add(t, state[i], d)
+        result = [R.zero() for _ in range(T)]
+        result[0] = d
+        for i in range(1, T):
+            t = R.const(FAST_PARTIAL_ROUND_VS[r * (T - 1) + (i - 1)])
+            result[i] = R.mul_add(t, state[0], state[i])
+        return result
+
+    out = []
+    swap = W[gate.WIRE_SWAP]
+    out.append(R.sub(R.mul(swap, swap), swap))
+    for i in range(4):
+        diff = R.sub(W[gate.wire_input(i + 4)], W[gate.wire_input(i)])
+        out.append(R.sub(R.mul(swap, diff), W[gate.wire_delta(i)]))
+
+    state = [None] * T
+    for i in range(4):
+        state[i] = R.add(W[gate.wire_input(i)], W[gate.wire_delta(i)])
+        state[i + 4] = R.sub(W[gate.wire_input(i + 4)], W[gate.wire_delta(i)])
+    for i in range(8, T):
+        state[i] = W[gate.wire_input(i)]
+
+    round_ctr = 0
+    for r in range(R_F_HALF):
+        state = constant_layer(state, round_ctr)
+        if r != 0:
+            for i in range(T):
+                sbox_in = W[gate.wire_full_sbox_0(r, i)]
+                out.append(R.sub(state[i], sbox_in))
+                state[i] = sbox_in
+        state = mds_layer([sbox(s) for s in state])
+        round_ctr += 1
+
+    state = [R.add(s, R.const(FAST_PARTIAL_FIRST_ROUND_CONSTANT[i]))
+             for i, s in enumerate(state)]
+    result = [R.zero() for _ in range(T)]
+    result[0] = state[0]
+    for r in range(1, T):
+        for c in range(1, T):
+            t = R.const(FAST_PARTIAL_ROUND_INITIAL_MATRIX[(r - 1) * (T - 1) + (c - 1)])
+            result[c] = R.mul_add(t, state[r], result[c])
+    state = result
+    for r in range(R_P - 1):
+        sbox_in = W[gate.wire_partial_sbox(r)]
+        out.append(R.sub(state[0], sbox_in))
+        state[0] = R.add(sbox(sbox_in), R.const(FAST_PARTIAL_ROUND_CONSTANTS[r]))
+        state = mds_partial_layer_fast(state, r)
+    sbox_in = W[gate.wire_partial_sbox(R_P - 1)]
+    out.append(R.sub(state[0], sbox_in))
+    state[0] = sbox(sbox_in)
+    state = mds_partial_layer_fast(state, R_P - 1)
+    round_ctr += R_P
+
+    for r in range(R_F_HALF):
+        state = constant_layer(state, round_ctr)
+        for i in range(T):
+            sbox_in = W[gate.wire_full_sbox_1(r, i)]
+            out.append(R.sub(state[i], sbox_in))
+            state[i] = sbox_in
+        state = mds_layer([sbox(s) for s in state])
+        round_ctr += 1
+
+    for i in range(T):
+        out.append(R.sub(state[i], W[gate.wire_output(i)]))
+    return out
+
+
+def poseidon_fill_plain(ins, swap):
+    """The plain version of the fill kernel (ops/witness_kernel.py): all 135
+    PoseidonGate wires of int64 inputs [12, *S] and swap bits [*S], as
+    int64[135, *S], canonical. The permutation runs in plonky2's
+    fast-partial-round form, whose s-box inputs are the wires the gate
+    records."""
+    from ..ops import gl64
+
+    F = gl64.Field(ins.device)
     g = PoseidonGate()
-    ins = F.stack(list(inputs) + [swap])
-    ins, sw = ins[:T], ins[T]
+    sw = swap
     nd = ins.dim() - 1
     deltas = F.mul(sw, F.sub(ins[4:8], ins[0:4]))
     s = F.concat([F.add(ins[0:4], deltas), F.sub(ins[4:8], deltas), ins[8:]], axis=0)
@@ -863,4 +964,17 @@ def poseidon_witness_fill(F, inputs, swap):
     wires = F.canonical(F.concat(
         [ins, s, sw[None], deltas] + full_0 + [F.stack(partial)] + full_1, axis=0))
     assert wires.shape[0] == g.num_wires_used()
-    return wires, F.unstack(wires[g.wire_output(0):g.wire_output(0) + T])
+    return wires
+
+
+def poseidon_witness_fill(F, inputs, swap):
+    """All 135 PoseidonGate wires of one gate row for a batch: `inputs` are
+    the 12 input words and `swap` the swap bit, tensors of one shape S.
+    Returns (wires int64[135, *S], the 12 output words), canonical: the
+    fill kernel on a CUDA tensor, its plain version on a CPU one."""
+    from ..ops import witness_kernel
+
+    ins = F.stack(list(inputs) + [swap])
+    wires = witness_kernel.poseidon_gate_fill(ins[:T], ins[T])
+    out0 = PoseidonGate().wire_output(0)
+    return wires, F.unstack(wires[out0:out0 + T])

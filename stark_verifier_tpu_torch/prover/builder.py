@@ -32,6 +32,7 @@ from ..core.types import (
     constant_arity_bits,
 )
 from ..ops import ext2, gl64
+from ..ops import witness_kernel
 from ..ops import ntt
 from ..ops import ntt_np
 from ..ops import poseidon_gl as pg
@@ -42,6 +43,70 @@ from ..utils.bits import log2_strict, reverse_index_bits_perm
 Target = Tuple
 
 P = gl64.P
+
+
+def _scaled(F, c: int, v):
+    """c * v for a canonical constant c: v itself for 1, -v for p - 1, a
+    multiply by a small constant below 2^15, else a full multiply. The
+    gadgets' constants are mostly 0, 1 and p - 1 (the extension ring's add,
+    sub, mul), so a generator skips most of its multiplies."""
+    if c == 1:
+        return v
+    if c == P - 1:
+        return F.neg(v)
+    if c < (1 << 15):
+        return F.mul_small(v, c)
+    return F.mul(F.const(c), v)
+
+
+def _linear(F, c0: int, prod, c1: int, z):
+    """c0 * prod + c1 * z, the arithmetic gates' output."""
+    out = _scaled(F, c0, prod)
+    if c1 == 0:
+        return out
+    if c1 == 1:
+        return F.add(out, z)
+    if c1 == P - 1:
+        return F.sub(out, z)
+    return F.add(out, _scaled(F, c1, z))
+
+
+def _ext_mul(F, x, y) -> torch.Tensor:
+    """x * y in GF(p^2) for ext pairs of [B] tensors, as int64[2, B]:
+    Karatsuba's three products (ops/ext2.mul's) as one multiply of [3, B]
+    stacks, so that a generator issues a third of the multiplies' ops."""
+    t = F.mul(torch.stack([x[0], x[1], F.add(x[0], x[1])]),
+              torch.stack([y[0], y[1], F.add(y[0], y[1])]))
+    return torch.stack([F.add(t[0], F.mul_small(t[1], ext2.W)),
+                        F.sub(t[2], F.add(t[0], t[1]))])
+
+
+def reducing_generator(gate, row: int, alpha2, old_acc2, coeffs, ext_coeffs=False):
+    """The witness generator of a Reducing (base coefficients, each a
+    target) or ReducingExtension row (each an ext pair of targets): the
+    row's inputs copied in, then its whole Horner chain, every accumulator,
+    in one `ext2_reduce_chain` launch."""
+
+    def gen(s, alpha2=tuple(alpha2), old_acc2=tuple(old_acc2), coeffs=tuple(coeffs)):
+        av = torch.stack([s.get(alpha2[0]), s.get(alpha2[1])])
+        acc = torch.stack([s.get(old_acc2[0]), s.get(old_acc2[1])])
+        for k in range(2):
+            s.set(("w", row, 2 + k), av[k])
+            s.set(("w", row, 4 + k), acc[k])
+        parts = [tuple(c) if ext_coeffs else (c,) for c in coeffs]
+        for i, targets in enumerate(parts):
+            for k, t in enumerate(targets):
+                s.set(("w", row, gate.wire_coeff(i) + k), s.get(t))
+        c0 = torch.stack([s.get(t[0]) for t in parts])
+        c1 = (torch.stack([s.get(t[1]) for t in parts]) if ext_coeffs
+              else torch.zeros_like(c0))
+        accs = witness_kernel.ext2_reduce_chain(av, acc, torch.stack([c0, c1], dim=1))
+        for i in range(len(parts)):
+            w = gate.wires_acc(i)
+            s.set(("w", row, w), accs[i, 0])
+            s.set(("w", row, w + 1), accs[i, 1])
+
+    return gen
 
 
 def require_device(device) -> torch.device:
@@ -79,6 +144,8 @@ class WitnessStore:
 
     def _tensor(self, v) -> torch.Tensor:
         if torch.is_tensor(v):
+            if v.device == self.F.device and v.shape == (self.batch,):
+                return v  # what generators store: no op to dispatch
             return v.to(self.F.device).expand(self.batch)
         if isinstance(v, (int, np.integer)):
             return self.F.const(int(v), (self.batch,))
@@ -213,8 +280,7 @@ class CircuitBuilder:
             vx, vy, vz = s.get(x), s.get(y), s.get(z)
             for t, v in zip(ws[:3], (vx, vy, vz)):
                 s.set(("w", row, t), v)
-            s.set(("w", row, ws[3]), F.add(F.mul(F.const(c0), F.mul(vx, vy)),
-                                           F.mul(F.const(c1), vz)))
+            s.set(("w", row, ws[3]), _linear(F, c0, F.mul(vx, vy), c1, vz))
 
         self.generators.append(gen)
         return ("w", row, wo)
@@ -328,9 +394,9 @@ class CircuitBuilder:
             for k in range(2):
                 s.set(("w", row, b + k), xv[k])
                 s.set(("w", row, b + 2 + k), yv[k])
-            prod = ext2.mul(F, xv, yv)
-            s.set(("w", row, b + 4), F.mul(F.const(c0), prod[0]))
-            s.set(("w", row, b + 5), F.mul(F.const(c0), prod[1]))
+            out = _scaled(F, c0, _ext_mul(F, xv, yv))
+            s.set(("w", row, b + 4), out[0])
+            s.set(("w", row, b + 5), out[1])
 
         self.generators.append(gen)
         return [("w", row, b + 4), ("w", row, b + 5)]
@@ -358,10 +424,9 @@ class CircuitBuilder:
                 s.set(("w", row, b + k), xv[k])
                 s.set(("w", row, b + 2 + k), yv[k])
                 s.set(("w", row, b + 4 + k), zv[k])
-            prod = ext2.mul(F, xv, yv)
-            for k in range(2):
-                s.set(("w", row, b + 6 + k), F.add(F.mul(F.const(c0), prod[k]),
-                                                   F.mul(F.const(c1), zv[k])))
+            out = _linear(F, c0, _ext_mul(F, xv, yv), c1, torch.stack(zv))
+            s.set(("w", row, b + 6), out[0])
+            s.set(("w", row, b + 7), out[1])
 
         self.generators.append(gen)
         return [("w", row, b + 6), ("w", row, b + 7)]
@@ -377,23 +442,7 @@ class CircuitBuilder:
         for i, c in enumerate(coeffs):
             self.connect(c, ("w", row, gate.wire_coeff(i)))
 
-        def gen(s, alpha2=tuple(alpha2), old_acc2=tuple(old_acc2),
-                coeffs=tuple(coeffs), row=row, gate=gate):
-            F = s.F
-            av = (s.get(alpha2[0]), s.get(alpha2[1]))
-            acc = (s.get(old_acc2[0]), s.get(old_acc2[1]))
-            for k in range(2):
-                s.set(("w", row, 2 + k), av[k])
-                s.set(("w", row, 4 + k), acc[k])
-            for i, c in enumerate(coeffs):
-                cv = s.get(c)
-                s.set(("w", row, gate.wire_coeff(i)), cv)
-                acc = ext2.add(F, ext2.mul(F, acc, av), ext2.from_base(F, cv))
-                w = gate.wires_acc(i)
-                s.set(("w", row, w), acc[0])
-                s.set(("w", row, w + 1), acc[1])
-
-        self.generators.append(gen)
+        self.generators.append(reducing_generator(gate, row, alpha2, old_acc2, coeffs))
         return [("w", row, 0), ("w", row, 1)]
 
     # ------------------------------------------------------------- blinding

@@ -106,6 +106,7 @@ class AccessSet:
         self.config = config or semaphore_config()
         self.min_degree = min_degree
         self._circuit: CircuitData = None
+        self._wrapper = None
         self._root = None
 
     @staticmethod
@@ -223,3 +224,37 @@ class AccessSet:
                 continue
             out.append(bool(verify_proof(F, data.common, data.vk, s.proof)))
         return out
+
+    def verify_signal(self, signal: Signal) -> bool:
+        """The reference's full `verify_signal` composition (access_set.rs:
+        28-59) on the set's device: the expected public inputs re-derived,
+        the proof wrapped into an outer circuit under the BN254 hash config
+        (the reference's standard_stark_verifier_config switch,
+        wrapper.rs:16-57, plonky2_config.rs:78-104; the wrapper is built at
+        the first call and kept), the wrapper proved, and the wrapped
+        (bridge-hashed) proof verified. Where the reference then feeds the
+        wrapped proof to Halo2/KZG/EVM, the terminal step here is the port's
+        verifier on that proof.
+
+        Returns False instead of raising on an invalid signal: the wrapper
+        prover surfaces an unsatisfiable child as a WitnessConflict."""
+        from ..core.verifier import verify_proof
+        from ..prover.builder import WitnessConflict
+        from .recursion import build_wrapper_circuit
+
+        data = self.circuit()
+        if not (signal.proof.public_inputs == self.expected_public_inputs(signal)).all():
+            return False
+        if self._wrapper is None:
+            self._wrapper = build_wrapper_circuit(data.common, hasher="bn254",
+                                                  device=self.device)
+        try:
+            wrapped = self._wrapper.prove([signal.proof], data.vk)[0]
+        except WitnessConflict:
+            return False
+        if not (wrapped.public_inputs == signal.proof.public_inputs).all():
+            return False
+        w = self._wrapper.data
+        if w.common.config.hasher != "bn254":
+            raise RuntimeError("the wrapper circuit is not under the bn254 config")
+        return bool(verify_proof(gl64.Field(self.device), w.common, w.vk, wrapped))

@@ -94,12 +94,10 @@ def test_gate_over_the_base_ring(case):
     assert (np.stack([F.to_u64(g) for g in got]) == np.stack(want)).all()
 
 
-def test_poseidon_gate_refuses_the_base_ring():
+def test_poseidon_gate_over_the_base_ring_equals_reference():
     """The Poseidon gate over the base ring, which the prover's quotient and
     witness checker evaluate it on: the JAX package's constraint values on
-    random and edge wires, and on all-zero wires. (The name dates from when
-    the port's gate refused that ring; it is kept so that the test's record
-    runs on under one name.)"""
+    random and edge wires, and on all-zero wires."""
     tg, jg = tgates.PoseidonGate(), jgates.PoseidonGate()
     rng = np.random.default_rng(17)
     for wires in (_values(rng, tg.num_wires_used()),

@@ -220,10 +220,12 @@ def test_package_imports_without_jax():
         "from stark_verifier_tpu_torch.core import verifier, verifier_batched, challenger, merkle, gates\n"
         "from stark_verifier_tpu_torch.ops import poseidon_kernel, probes, cuda_build, hashers\n"
         "from stark_verifier_tpu_torch.ops import ntt, ntt_np, poseidon_spec\n"
+        "from stark_verifier_tpu_torch.ops import poseidon_bn254, witness_kernel\n"
         "from stark_verifier_tpu_torch.core import plonky2_io\n"
         "from stark_verifier_tpu_torch.parallel import multihost, mesh, batch_verify\n"
-        "from stark_verifier_tpu_torch.prover import builder, prove, lde, check\n"
-        "from stark_verifier_tpu_torch.semaphore import access_set\n"
+        "from stark_verifier_tpu_torch.prover import builder, prove, lde, check, recursion\n"
+        "from stark_verifier_tpu_torch.semaphore import access_set, aggregate, attestation\n"
+        "from stark_verifier_tpu_torch.semaphore import recursion as semaphore_recursion\n"
         "from stark_verifier_tpu_torch import entry\n"
         "from stark_verifier_tpu_torch.utils import roofline\n"
         "import importlib.util, pathlib\n"
