@@ -1000,10 +1000,9 @@ def cpu_digest(pis_u64, ok):
                                     permute=pg.permute_plain))
 
 
-# proofs of the sharded phase's make_batch_verifier leg: it verifies them
-# one by one (~3 s each), so it is cut from 64 to leave room in the
-# script's time limit for the recursion phase
-BATCH_VERIFIER_PROOFS = 16
+# proofs of the sharded phase's make_batch_verifier leg, which verifies
+# them one by one
+BATCH_VERIFIER_PROOFS = 64
 
 
 def phase_sharded(device):
@@ -1649,28 +1648,49 @@ def phase_recursion(device, rows):
 
     # ---- (c) aggregation of 4 signals at the reference's strength
     cfg = recursion_config(aset.config.fri_config, zero_knowledge=True)
+    # the levels' circuits are built first, each counted on its own (their
+    # constants trees and digests launch Poseidon, and nothing else), and
+    # handed to aggregate_signals through its cache
+    cache, builds = {}, []
+    level_common = aset.circuit().common
+    for _ in range(RECURSION_SIGNALS.bit_length() - 1):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        level = SREC.build_aggregation_circuit(level_common, cfg)  # device="cuda"
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        built = {**pk.LAUNCHES, **bk.LAUNCHES, **WK.LAUNCHES}
+        check(built[default] > 0 and sum(built.values()) == built[default],
+              f"aggregation: a level's build launched {built}")
+        builds.append({"build_s": build_s, "build_poseidon_launches": built[default]})
+        cache[id(level_common)] = level
+        level_common = level.data.common
     stats, agg_lanes = [], []
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
     agg = SREC.aggregate_signals(
-        aset, signals[:RECURSION_SIGNALS], config=cfg, level_stats=stats,
+        aset, signals[:RECURSION_SIGNALS], config=cfg, level_stats=stats, _cache=cache,
         witness_rng=np.random.default_rng(SEED + 13),
         salt_rng=np.random.default_rng(SEED + 14),
         permute=recorder(agg_lanes), inner_permute=recorder(agg_lanes))
     torch.cuda.synchronize()
     agg_s = time.perf_counter() - t0
-    # the Poseidon count also holds the two circuits' builds (their
-    # constants trees and digests), which the provers' recorder does not see
-    agg_launches = {**WK.LAUNCHES, default: pk.LAUNCHES[default]}
-    check(agg_launches["poseidon_gate_fill"] == sum(st["gate_rows"]["PoseidonGate"]
-                                                    for st in stats)
-          and agg_launches["ext2_reduce_chain"] == sum(
-              st["gate_rows"].get(g, 0) for st in stats
-              for g in ("ReducingGate", "ReducingExtensionGate"))
-          and agg_launches[default] > len(agg_lanes),
-          f"aggregation: launches {agg_launches} for {len(agg_lanes)} Poseidon calls "
-          f"in the provers and the levels' rows")
+    for st, built in zip(stats, builds):
+        st.update(built)
+    agg_counts = {**pk.LAUNCHES, **bk.LAUNCHES, **WK.LAUNCHES}
+    agg_launches = {**WK.LAUNCHES, default: agg_counts[default]}
+    agg_fills = sum(st["gate_rows"]["PoseidonGate"] for st in stats)
+    agg_chains = sum(st["gate_rows"].get(g, 0) for st in stats
+                     for g in ("ReducingGate", "ReducingExtensionGate"))
+    check(len(stats) == len(builds)
+          and agg_counts["poseidon_gate_fill"] == agg_fills
+          and agg_counts["ext2_reduce_chain"] == agg_chains
+          and agg_counts[default] == len(agg_lanes)
+          and sum(agg_counts.values()) == len(agg_lanes) + agg_fills + agg_chains,
+          f"aggregation: launches {agg_counts} for {len(agg_lanes)} Poseidon calls "
+          f"in the provers, {agg_fills} fill and {agg_chains} chain rows")
     check([st["degree_bits"] for st in stats] == [14, 14],
           f"aggregation: levels of degree 2^{[st['degree_bits'] for st in stats]}")
     check(SREC.verify_aggregated(agg, aset.merkle_root),

@@ -5,9 +5,12 @@ The reference produces its final wrapper proof under a plonky2 config whose
 transcript and Merkle hash packs 3 Goldilocks limbs into one BN254 Fr and
 runs a width-5 Poseidon (bn245_poseidon/native.rs:43-77,
 plonky2_config.rs:53-104), so that the Halo2 circuit can verify it cheaply.
-These are the host functions, in exact python-int arithmetic: the golden
-model that the tensor version (ops/fr_bn254.py) and the Hopper kernel
-(ops/poseidon_bn254_kernel.py) are held against.
+These are the host functions, in exact python-int arithmetic, a copy of
+the JAX package's public host API. Nothing on the port's path calls them:
+it hashes with the plain tensor version (ops/fr_bn254.py) and the bridge
+kernel (ops/poseidon_bn254_kernel.py). tests/test_torch_poseidon_bn254_host.py
+holds them against the JAX package's copies, and the tensor version and the
+kernel's schedule on ints against them.
 """
 from __future__ import annotations
 

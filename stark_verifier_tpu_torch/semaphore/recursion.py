@@ -7,8 +7,7 @@ shared verifier-data target and re-exposes root ‖ child0-rest ‖ child1-rest
 as public inputs (recursion.rs:25-185). `aggregate_proofs` folds N proofs
 level by level; where the reference fans each level out over rayon threads
 (recursion.rs:214-227), all pairs of a level are proved as one batch on the
-circuit's device: the whole level is one `prove_batch` call (or a few of at
-most `max_pairs` pairs).
+circuit's device: the whole level is one `prove_batch` call.
 
 The random draws of a proof (blinding rows, salts) come from the
 `witness_rng` / `salt_rng` generators when they are given, as
@@ -17,7 +16,6 @@ The random draws of a proof (blinding rows, salts) come from the
 from __future__ import annotations
 
 import collections
-import os
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Tuple
@@ -80,30 +78,15 @@ def build_aggregation_circuit(inner_common: CommonData, config: CircuitConfig = 
 
 
 def prove_aggregation_level(agg: AggregationCircuit, proofs: List[Proof],
-                            inner_vk: VerifierOnlyData, max_pairs: int = None,
-                            **prove_kw) -> List[Proof]:
+                            inner_vk: VerifierOnlyData, **prove_kw) -> List[Proof]:
     """One tree level: proofs[2k], proofs[2k+1] -> aggregated proof k, all
-    pairs proved as one batch on the circuit's device.
-
-    max_pairs chunks a wide level into sequential prove_batch calls of at
-    most that many pairs (SVT_AGG_CHUNK overrides; 0 = one call), which
-    keeps the level's peak memory flat as N grows. `prove_kw` goes to
+    pairs proved as one batch on the circuit's device. `prove_kw` goes to
     prove_batch (witness_rng, salt_rng, permute, inner_permute, stage_ms,
     check_witness)."""
     if not proofs or len(proofs) % 2:
         raise ValueError(f"a level needs an even, nonzero number of proofs, got {len(proofs)}")
-    if max_pairs is None:
-        max_pairs = int(os.environ.get("SVT_AGG_CHUNK", "0"))
     left, right = proofs[0::2], proofs[1::2]
     B = len(left)
-    if max_pairs and B > max_pairs:
-        out: List[Proof] = []
-        for s in range(0, B, max_pairs):
-            out.extend(prove_aggregation_level(
-                agg, [p for lr in zip(left[s:s + max_pairs],
-                                      right[s:s + max_pairs]) for p in lr],
-                inner_vk, max_pairs=0, **prove_kw))
-        return out
     device = agg.data.device
     inputs: Dict = {}
     inputs.update(fill_proof_targets(agg.pt0, left, device))
