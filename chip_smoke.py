@@ -8,7 +8,10 @@ needs one CUDA card (built for Hopper, sm_90a), `nvcc`, and no network. It
   1. names the device;
   2. builds every hand-written kernel from the sources in this checkout
      (one nvcc a source, all started together) and prints, one line a
-     kernel, the registers and spill bytes ptxas reported for it;
+     kernel, the registers and spill bytes ptxas reported for it; loads
+     each library onto the card and times an empty kernel's launch from a
+     CUDA graph (the launch floor, `launch_floor_ms` of every kernel row:
+     no launch is shorter);
   3. holds each kernel against its plain PyTorch version on the card, at the
      lane counts the paths give it and, for the two rate probes, on the
      card-filling tensors they are timed on (exact equality: this is modular
@@ -51,7 +54,7 @@ needs one CUDA card (built for Hopper, sm_90a), `nvcc`, and no network. It
      batch of 1024 through make_sharded_verifier (batch in lanes), clean and
      corrupted, with its accept count and the digest chain (3,072
      permutations of one lane, counted), the digest equal to the same chain
-     run on the CPU with the plain permutation; make_batch_verifier on 16
+     run on the CPU with the plain permutation; make_batch_verifier on 64
      proofs;
   9. runs the NTT on the card: coset_lde (rate 3, shift 7) of the prover's
      three degree-2^13 shapes ([1080 | 160 | 128, 2^13] -> 2^16 points a
@@ -78,10 +81,11 @@ needs one CUDA card (built for Hopper, sm_90a), `nvcc`, and no network. It
      prover's widest lane counts (262,144, 524,288, 1,048,576);
  12. runs recursion on the card, on the prove phase's set and signals:
      the two witness kernels (poseidon_gate_fill, ext2_reduce_chain)
-     against their plain versions at 1 to 1,025 lanes (edge words,
-     non-canonical swap bits, base and extension coefficients) and timed at
-     the lane counts the paths launch them at; the bn254 wrapper of the
-     zk20 circuit built on the card, its CommonData and verifying key equal
+     against their plain versions at 1 to 1,025 lanes and 1 to 100 chain
+     steps, across the chain's chunks of 32 (edge words, non-canonical swap
+     bits, base and extension coefficients) and timed at the lane counts the
+     paths launch them at, each beside its bound and the launch floor; the
+     bn254 wrapper of the zk20 circuit built on the card, its CommonData and verifying key equal
      to sem_wrapped16.npz's, the fixture's first 16 zk20 proofs wrapped in
      one prove_batch (stage ms, proofs a second, peak bytes, launches by
      lane count of the bridge, Poseidon and the two witness kernels), every
@@ -344,19 +348,25 @@ def phase_device():
     return name, smi_line
 
 
-def phase_build():
+# device time of one launch of an empty kernel (phase_build)
+LAUNCH_FLOOR: dict = {}
+
+
+def phase_build(device):
     t0 = time.time()
     logs = cuda_build.build_all()
     for kernel in pk.KERNELS:          # load, bind, upload the round constants
-        pk._library(pk._HOME[kernel])
+        pk._library(pk._HOME[kernel], device)
     probes._library()
-    bk._library()
-    WK._library()
+    bk._library(device)
+    WK._library(device)
     seconds = time.time() - t0
+    LAUNCH_FLOOR["ms"] = graph_ms(lambda: WK.empty_launch(device), 50)
     emit({"phase": "build", "sources": sorted(cuda_build.SOURCES.values()),
           "nvcc": cuda_build.nvcc_path(), "flags": cuda_build.NVCC_FLAGS,
           "source_flags": cuda_build.SOURCE_FLAGS,
-          "seconds": round(seconds, 2), "built": sorted(n for n, log in logs.items() if log)})
+          "seconds": round(seconds, 2), "built": sorted(n for n, log in logs.items() if log),
+          "launch_floor_ms": LAUNCH_FLOOR["ms"]})
     # one line per kernel: registers and spills of each of its entry points
     # (the Poseidon kernels' narrow grids are kernels of their own), as
     # ptxas reported them when the library was built
@@ -366,11 +376,25 @@ def phase_build():
         check(bool(functions) and all("registers" in f and "spill_stores" in f
                                       for f in functions),
               f"no ptxas report for {name}")
+        if name in WK.KERNELS:
+            check(all(f["spill_stores"] == 0 and f["spill_loads"] == 0 for f in functions),
+                  f"{name} spills: {functions}")
         emit({"phase": "ptxas", "kernel": name, "source": source,
               "max_registers": max(f["registers"] for f in functions),
               "spill_stores": max(f["spill_stores"] for f in functions),
               "spill_loads": max(f["spill_loads"] for f in functions),
               "functions": functions})
+
+
+def least_time(t_bytes, t_ops):
+    """The least time of a launch: the larger of its bound (bytes or
+    operations over the card's rates) and the launch floor, and which one
+    it is."""
+    bound = max(t_bytes, t_ops)
+    floor = LAUNCH_FLOOR["ms"]
+    by = "launch" if floor > bound else ("bytes" if t_bytes >= t_ops else "operations")
+    return {"bound_ms": bound, "launch_floor_ms": floor, "least_ms": max(bound, floor),
+            "least_by": by}
 
 
 def kernel_row(name, ms, plain_ms, t_bytes, t_ops, library_ms=None,
@@ -379,10 +403,10 @@ def kernel_row(name, ms, plain_ms, t_bytes, t_ops, library_ms=None,
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "addition": name in ADDITIONS,
             "launches": 0, "max_abs_err": max_abs_err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "ms": ms, "plain_ms": plain_ms,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library_ms, "bound_bytes_ms": t_bytes,
-            "bound_operations_ms": t_ops, **extra}
+            "bound_operations_ms": t_ops, **least_time(t_bytes, t_ops), **extra}
 
 
 # Lane counts at which a verifier path launches the Poseidon kernel: one
@@ -1455,7 +1479,11 @@ RECURSION_INPUTS: dict = {}   # the prove phase's access set and first signals
 WRAP_BATCH = 16
 FILL_LANES = [1, 16, 64, 1025]           # 1,025: a ragged count
 CHAIN_LANES = [1, 16, 64]
-CHAIN_STEPS = [1, 32, 43]
+# the steps of the longest Reducing row, at which the kernels line reads the
+# chain; 32, 33, 64, 100: the edges of the kernel's chunks of 32 steps and
+# of its pairs of chunks
+REDUCING_STEPS = 43
+CHAIN_STEPS = [1, 32, 33, REDUCING_STEPS, 64, 100]
 # the lane counts at which a path launches the two witness kernels: one
 # signal's wrap and the top aggregation level (1), the first level's two
 # pairs (2), a wrap of 16, the prove phase's 64 signals
@@ -1495,9 +1523,10 @@ def witness_kernels(device):
     on the card (edge words, non-canonical ones among them; swap 0 and 1,
     half of each as the non-canonical word p or p + 1; base and extension
     coefficients), then timed at the lane counts the paths launch them at,
-    each beside its bound there: device time (50 launches replayed from a
-    CUDA graph) and the eager call's time (100 calls between CUDA events;
-    the wrapper's host work, where it is longer than the kernel)."""
+    each beside its bound and the launch floor there: device time (50
+    launches replayed from a CUDA graph) and the eager call's time (100
+    calls between CUDA events; the wrapper's host work, where it is longer
+    than the kernel)."""
     rng = np.random.default_rng(SEED + 15)
     fill, chain = {}, {}
     for lanes in sorted(set(FILL_LANES + WITNESS_PATH_LANES)):
@@ -1513,8 +1542,8 @@ def witness_kernels(device):
         t_bytes, t_ops = fill_bound_ms(lanes)
         fill[lanes] = {"ms": graph_ms(lambda: WK.poseidon_gate_fill(ins, sw), 50),
                        "call_ms": cuda_ms(lambda: WK.poseidon_gate_fill(ins, sw), 100),
-                       "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-                       "bound_bytes_ms": t_bytes, "bound_operations_ms": t_ops}
+                       "plain_ms": plain_ms, "bound_bytes_ms": t_bytes,
+                       "bound_operations_ms": t_ops, **least_time(t_bytes, t_ops)}
     for lanes in sorted(set(CHAIN_LANES + WITNESS_PATH_LANES)):
         for k in CHAIN_STEPS:
             for ext in (False, True):
@@ -1532,9 +1561,9 @@ def witness_kernels(device):
             chain[f"{lanes}x{k}"] = {"ms": graph_ms(lambda: WK.ext2_reduce_chain(a, x, c), 50),
                                      "call_ms": cuda_ms(lambda: WK.ext2_reduce_chain(a, x, c),
                                                         100),
-                                     "plain_ms": plain_ms,
-                                     "bound_ms": max(t_bytes, t_ops),
-                                     "bound_bytes_ms": t_bytes, "bound_operations_ms": t_ops}
+                                     "plain_ms": plain_ms, "bound_bytes_ms": t_bytes,
+                                     "bound_operations_ms": t_ops,
+                                     **least_time(t_bytes, t_ops)}
     return fill, chain
 
 
@@ -1735,7 +1764,7 @@ def phase_recursion(device, rows):
         "poseidon_gate_fill", f16["ms"], f16["plain_ms"], fb, fo, lanes=WRAP_BATCH,
         by_lanes=fill, launches_per_aggregation=agg_launches["poseidon_gate_fill"])
     rows["poseidon_gate_fill"]["launches"] = counts["poseidon_gate_fill"]
-    k = max(CHAIN_STEPS)
+    k = REDUCING_STEPS
     cb, co = chain_bound_ms(WRAP_BATCH, k)
     c16 = chain[f"{WRAP_BATCH}x{k}"]
     rows["ext2_reduce_chain"] = kernel_row(
@@ -1766,7 +1795,7 @@ def main():
     t_start = time.time()
     name, smi_line = phase_device()
     rows, seconds = {}, {}
-    args = {"build": (), "per_proof": (device,), "sharded": (device,),
+    args = {"build": (device,), "per_proof": (device,), "sharded": (device,),
             "ntt": (device,), "codec": (device,), "prove": (device,)}
     for phase in ("build",) + PHASES:
         if only is not None and phase not in only + ["build"]:
@@ -1783,7 +1812,8 @@ def main():
         emit({"partial": only})
         return
     keys = ("name", "route", "source", "replaces", "addition", "launches",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "launch_floor_ms", "least_by")
     print(smi_line, flush=True)
     emit({"kernels": [{k: rows[n][k] for k in keys} for n in KERNEL_FILES]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

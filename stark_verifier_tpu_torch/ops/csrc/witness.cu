@@ -17,19 +17,54 @@
 //     coefficients (base or extension) -> int64[k, 2, L], canonical.
 //     Counterpart of svt_ext2_reduce_chain (native/svt_poseidon.c:474).
 //
-// Both run one thread a lane. The recursive provers call them at 1 to 64
-// lanes (a wrap, a level of pairs, a batch of signals), once a gate row, so
-// a launch is all their time; the design is the simplest that is right:
-// every step a full Goldilocks multiply (goldilocks.cuh), the full rounds'
-// MDS as poseidon_gl.cu computes it (32-bit halves, one fold a row), the
-// tables read from global memory, each value written as soon as it exists.
+// What bounds them on this card. The recursive provers launch each once a
+// gate row at 1, 2, 16 or 64 lanes (a signal's wrap and the top level, a
+// level of two pairs, a wrap of 16, a batch of signals), so a launch is one
+// lane's latency, never the card's rates: the bounds by bytes and by
+// operations are below 0.002 ms, the launch itself some microseconds. One
+// thread a lane made each launch one thread's serial chain: the fill's
+// ~1,100 dependent multiplies and its table reads from global memory (0.067
+// ms), the chain's k steps each behind a load (0.36 us a step). The designs
+// shorten that chain:
+//
+//   * the fill, twelve threads a lane (one state word each) in groups of
+//     16, two lanes a warp, one warp a block: the layout of
+//     poseidon_permute's narrow grid (poseidon_gl.cu), whose MDS code it
+//     shares (poseidon_split.cuh). A full round is one s-box deep a thread
+//     and one row; the initial matrix is 11 independent products a thread;
+//     a partial round runs the s-box of word 0 on every thread of the group
+//     (no divergence, no broadcast) while the threads of words 1..11 form
+//     their w-hat products and add them over the group by a butterfly of
+//     warp shuffles, so its critical path is the s-box and one product,
+//     not 23 products in series. The tables are copied into shared memory
+//     once a block, before any round; every wire is stored by the thread
+//     that owns its word as soon as it exists. Threads 12..15 of a group,
+//     and the group past a ragged end, run along and store nothing, so that
+//     every shuffle and every __syncwarp has its whole warp;
+//   * the chain, one warp a lane: thread t takes steps base + t and
+//     base + 32 + t of each pair of chunks of 32 steps, its coefficients
+//     loaded before any arithmetic (the next pair's while a pair ends).
+//     Each pair is a Hillis-Steele scan of the affine maps x -> alpha x + c_i
+//     (5 levels, B_i += alpha^(2^l) B_(i - 2^l)), the first pair's beside
+//     the scan of the multipliers, which ends at alpha^(i + 1); then
+//     acc_i = alpha^(i + 1) carry + B_i, and thread 31's accumulator is the
+//     next chunk's carry. Field arithmetic is exact and every output
+//     canonical, so the reassociation changes no word. The products by 7
+//     (and the fill's by 25) are one fold (mul_small), and no product sits
+//     under a branch: a branch on the thread's index kept the compiler from
+//     interleaving the products of a level.
+//
+// tools/torch_witness_alternatives.py times both against one thread a lane
+// (the design before), the chain as a serial loop over coefficients in
+// registers, one chunk a pass, full multiplies for the constants, and the
+// fill with its partial rounds unrolled.
 //
 // Plain C interface (loaded with ctypes): no PyTorch headers, launches on
 // the stream it is given, allocates nothing, returns cudaGetLastError().
-#include "goldilocks.cuh"
+#include "poseidon_split.cuh"
 
-#define FILL_THREADS 64
-#define CHAIN_THREADS 64
+#define FILL_THREADS 32            // one warp a block: SPLIT_PERMS lanes
+#define CHAIN_THREADS 32           // one warp a block: one lane
 #define FILL_WIRES 135
 #define START_OUTPUT 12
 #define WIRE_SWAP 24
@@ -38,13 +73,14 @@
 #define START_PARTIAL 65
 #define START_FULL_1 87
 static_assert(START_FULL_1 + HALF_FULL * WIDTH == FILL_WIRES, "PoseidonGate's 135 wires");
+static_assert(SPLIT == WIDTH, "the fill gives each thread of a group one word");
 
 // The fill's tables, one after the other (ops/witness_kernel.fill_tables):
 // the 30 x 12 round constants and plonky2's forwarded partial-round
 // constants (12 before the first partial round, one a partial round), as
 // poseidon_kernel.schedule_tables() gives them; then the fast form's
 // 11 x 11 initial matrix and, for each of the 22 partial rounds, its 11
-// w-hat and 11 v entries.
+// w-hat and 11 v entries. Every entry is canonical.
 #define FIRST_AT (N_ROUNDS * WIDTH)
 #define PRC_AT (FIRST_AT + WIDTH)
 #define INIT_AT (PRC_AT + N_PARTIAL)
@@ -53,157 +89,239 @@ static_assert(START_FULL_1 + HALF_FULL * WIDTH == FILL_WIRES, "PoseidonGate's 13
 #define FILL_TABLE_WORDS (VS_AT + N_PARTIAL * (WIDTH - 1))
 __device__ u64 FILL_TABLES[FILL_TABLE_WORDS];
 
-#define MDS_CIRC {17, 15, 41, 16, 2, 28, 13, 13, 39, 18, 34, 20}
-constexpr u32 DIAG0 = 8;
+constexpr unsigned FULL_MASK = 0xFFFFFFFFu;
+constexpr u32 MDS0TO0 = 17 + DIAG0;     // CIRC[0] + DIAG[0]
 
 // a - b mod p for canonical a and b: canonical
 __device__ __forceinline__ u64 sub_canonical(u64 a, u64 b) {
     return (a >= b) ? a - b : a + (GL_P - b);
 }
 
-// (sum_lo + sum_hi * 2^32) mod p for an MDS row's two partial sums, each
-// below 2^41: poseidon_gl.cu's fold_row.
-__device__ __forceinline__ u64 fold_row(u64 sum_lo, u64 sum_hi) {
-    u64 lo = sum_lo + (sum_hi << 32);
-    u32 h = (u32)(sum_hi >> 32) + ((lo < sum_lo) ? 1u : 0u);
-    u64 t = (u64)h * EPS;
-    u64 r = lo + t;
-    return r + ((r < t) ? EPS : 0ull);
+// x * c mod p for any representative x and a constant c < 2^32 (7 and 25
+// here): the product's high word h is below c, so it folds as lo + h * EPS
+// with one carry corrected, as fold_row does, without mul_gl's 64 x 64
+// high product and its fold
+__device__ __forceinline__ u64 mul_small(u64 x, u32 c) {
+    const u64 lo = x * c;
+    const u64 t = __umul64hi(x, c) * EPS;    // below 2^64: h < c < 2^32
+    const u64 r = lo + t;
+    return r + ((r < t) ? EPS : 0ull);       // a wrap leaves r below t
 }
 
-// the dense MDS layer: out[r] = sum_t CIRC[t] * s[(r + t) % 12] + 8 * s[0]
-// in row 0, on the words' 32-bit halves (poseidon_gl.cu's mds_layer)
-__device__ __forceinline__ void mds_layer(u64 (&s)[WIDTH]) {
-    constexpr u32 CIRC[WIDTH] = MDS_CIRC;
+// ------------------------------------------------------ poseidon_gate_fill
+// One full round on the group: thread q adds its word's constant, records
+// the s-box input at wire rec + q (rec < 0: not recorded) where it stores,
+// takes the s-box, and computes MDS row q from the group's twelve words,
+// which the owners pass through the stage.
+__device__ __forceinline__ u64 fill_full_round(u64 mine, const u64* tables, int r, int rec,
+                                               u64 (&stage)[WIDTH], bool owner, bool store, int q,
+                                               const u32 (&m)[WIDTH], u32 d0,
+                                               u64* __restrict__ out, long long L,
+                                               long long lane) {
+    mine = add_const(mine, tables[r * WIDTH + q]);
+    if (rec >= 0 && store) out[(rec + q) * L + lane] = canonical(mine);
+    mine = sbox7(mine);
     u32 lo[WIDTH], hi[WIDTH];
-#pragma unroll
-    for (int j = 0; j < WIDTH; ++j) {
-        lo[j] = (u32)s[j];
-        hi[j] = (u32)(s[j] >> 32);
-    }
-#pragma unroll
-    for (int r = 0; r < WIDTH; ++r) {
-        u64 sum_lo = 0, sum_hi = 0;
-#pragma unroll
-        for (int t = 0; t < WIDTH; ++t) {
-            sum_lo += (u64)lo[(r + t) % WIDTH] * CIRC[t];
-            sum_hi += (u64)hi[(r + t) % WIDTH] * CIRC[t];
-        }
-        if (r == 0) {
-            sum_lo += (u64)lo[0] * DIAG0;
-            sum_hi += (u64)hi[0] * DIAG0;
-        }
-        s[r] = fold_row(sum_lo, sum_hi);
-    }
-}
-
-// a full round whose s-box inputs (the state after the round constants)
-// are recorded at wires `rec` (rec < 0: not recorded)
-__device__ __forceinline__ void full_round(u64 (&s)[WIDTH], int r, u64* out, int rec,
-                                           long long L, long long i) {
-#pragma unroll
-    for (int j = 0; j < WIDTH; ++j) {
-        s[j] = add_gl(s[j], FILL_TABLES[r * WIDTH + j]);
-        if (rec >= 0) out[(rec + j) * L + i] = canonical(s[j]);
-        s[j] = sbox7(s[j]);
-    }
-    mds_layer(s);
+    u64 w0;
+    split_exchange(stage, owner, q, mine, lo, hi, w0);
+    return split_row(m, d0, lo, hi);
 }
 
 __global__ void __launch_bounds__(FILL_THREADS)
 poseidon_gate_fill_kernel(const u64* __restrict__ in, const u64* __restrict__ swap,
                           u64* __restrict__ out, long long L) {
-    long long i = (long long)blockIdx.x * FILL_THREADS + threadIdx.x;
-    if (i >= L) return;
-    u64 x[WIDTH], s[WIDTH];
+    __shared__ u64 tables[FILL_TABLE_WORDS];
+    __shared__ __align__(16) u64 stage[2][SPLIT_PERMS][WIDTH];
+    for (int i = threadIdx.x; i < FILL_TABLE_WORDS; i += FILL_THREADS) tables[i] = FILL_TABLES[i];
+    __syncthreads();
+
+    const int g = threadIdx.x / SPLIT_GROUP;
+    const bool owner = threadIdx.x % SPLIT_GROUP < SPLIT;
+    const int q = owner ? threadIdx.x % SPLIT_GROUP : 0;
+    const long long lane = (long long)blockIdx.x * SPLIT_PERMS + g;
+    const bool live = lane < L;
+    const long long at = live ? lane : 0;
+    // the thread that stores word q's wires: an owner of a live lane
+    const bool store = owner && live;
+
+    u32 m[WIDTH];
 #pragma unroll
-    for (int j = 0; j < WIDTH; ++j) {
-        x[j] = canonical(in[j * L + i]);
-        out[j * L + i] = x[j];
-    }
-    const u64 sw = canonical(swap[i]);
-    out[WIRE_SWAP * L + i] = sw;
-    // delta_j = swap * (in[4 + j] - in[j]): the first two words of four
-    // change places when swap is 1
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-        u64 d = canonical(mul_gl(sw, sub_canonical(x[4 + j], x[j])));
-        out[(START_DELTA + j) * L + i] = d;
-        s[j] = add_gl(x[j], d);
-        s[4 + j] = sub_canonical(x[4 + j], d);
-        s[8 + j] = x[8 + j];
+    for (int j = 0; j < WIDTH; ++j) m[j] = CIRC_TABLE[(j - q + WIDTH) % WIDTH];
+    const u32 d0 = (q == 0) ? DIAG0 : 0;
+
+    // inputs, swap, deltas: delta_j = swap * (in[4 + j] - in[j]) for j < 4,
+    // computed by both threads of the pair (q, q + 4); the first two words
+    // of four change places when swap is 1
+    const int lo_word = q & 3;
+    const u64 x_lo = canonical(in[lo_word * L + at]);
+    const u64 x_hi = canonical(in[(lo_word + 4) * L + at]);
+    const u64 x = canonical(in[q * L + at]);
+    const u64 sw = canonical(swap[at]);
+    if (store) out[q * L + lane] = x;
+    if (store && q == 0) out[WIRE_SWAP * L + lane] = sw;
+    u64 mine = x;
+    if (q < 8) {
+        const u64 d = canonical(mul_gl(sw, sub_canonical(x_hi, x_lo)));
+        if (store && q < 4) out[(START_DELTA + q) * L + lane] = d;
+        mine = (q < 4) ? add_gl(x_lo, d) : sub_canonical(x_hi, d);
     }
 
-    full_round(s, 0, out, -1, L, i);
+    // the first half's full rounds: round 0 not recorded, 1..3 recorded
+    int b = 0;
 #pragma unroll 1
-    for (int r = 1; r < HALF_FULL; ++r)
-        full_round(s, r, out, START_FULL_0 + WIDTH * (r - 1), L, i);
+    for (int r = 0; r < HALF_FULL; ++r, b ^= 1)
+        mine = fill_full_round(mine, tables, r, r == 0 ? -1 : START_FULL_0 + WIDTH * (r - 1),
+                               stage[b][g], owner, store, q, m, d0, out, L, lane);
 
-    // partial rounds, plonky2's fast form: the forwarded constants, the
-    // initial matrix on words 1..11 (result[c] = sum_r M[r][c] * s[r]), then
-    // a sparse matrix a round
-#pragma unroll
-    for (int j = 0; j < WIDTH; ++j) s[j] = add_gl(s[j], FILL_TABLES[FIRST_AT + j]);
+    // the forwarded constants, then the initial matrix on words 1..11:
+    // thread c + 1 takes t[c] = sum_r M[r][c] * s[1 + r], 11 independent
+    // products summed in two chains; every thread keeps word 0 as w0
+    mine = add_const(mine, tables[FIRST_AT + q]);
+    u64 w0;
     {
-        u64 t[WIDTH - 1];
+        u32 lo[WIDTH], hi[WIDTH];
+        split_exchange(stage[b][g], owner, q, mine, lo, hi, w0);
+        b ^= 1;
+        const int c = (q > 0) ? q - 1 : 0;
+        u64 t[2] = {0, 0};
 #pragma unroll
-        for (int c = 0; c < WIDTH - 1; ++c) t[c] = 0;
-#pragma unroll 1
         for (int r = 0; r < WIDTH - 1; ++r) {
-            const u64 v = s[1 + r];
-#pragma unroll
-            for (int c = 0; c < WIDTH - 1; ++c)
-                t[c] = add_gl(t[c], mul_gl(FILL_TABLES[INIT_AT + r * (WIDTH - 1) + c], v));
+            const u64 word = ((u64)hi[1 + r] << 32) | lo[1 + r];
+            t[r % 2] = add_gl(t[r % 2], mul_gl(tables[INIT_AT + r * (WIDTH - 1) + c], word));
         }
-#pragma unroll
-        for (int c = 0; c < WIDTH - 1; ++c) s[1 + c] = t[c];
+        mine = add_gl(t[0], t[1]);
     }
-    constexpr u32 MDS0TO0 = 17 + DIAG0;   // CIRC[0] + DIAG[0]
+
+    // the 22 sparse rounds: thread q > 0 holds word q, every thread word 0.
+    // sum = sum_j w-hat[r][j] s[1 + j] needs no s-box: its products and the
+    // butterfly over the group run beside the s-box of word 0. The
+    // butterfly's adds commute, so every thread of the group ends with the
+    // same representative, and w0 stays equal across the group.
+    const int j = (q > 0) ? q - 1 : 0;
 #pragma unroll 1
     for (int r = 0; r < N_PARTIAL; ++r) {
-        out[(START_PARTIAL + r) * L + i] = canonical(s[0]);
+        if (store && q == 0) out[(START_PARTIAL + r) * L + lane] = canonical(w0);
+        u64 sum = mul_gl(tables[WHAT_AT + r * (WIDTH - 1) + j], mine);
+        if (q == 0) sum = 0;           // a select, not a branch around the product
+#pragma unroll
+        for (int k = SPLIT_GROUP / 2; k > 0; k /= 2)
+            sum = add_gl(sum, __shfl_xor_sync(FULL_MASK, sum, k));
         // the last round's constant is 0: adding it is plonky2's skip
-        const u64 s0 = add_gl(sbox7(s[0]), FILL_TABLES[PRC_AT + r]);
-        u64 d = mul_gl(s0, MDS0TO0);
-#pragma unroll
-        for (int j = 0; j < WIDTH - 1; ++j) {
-            d = add_gl(d, mul_gl(FILL_TABLES[WHAT_AT + r * (WIDTH - 1) + j], s[1 + j]));
-            s[1 + j] = add_gl(mul_gl(FILL_TABLES[VS_AT + r * (WIDTH - 1) + j], s0), s[1 + j]);
-        }
-        s[0] = d;
+        const u64 s0 = add_const(sbox7(w0), tables[PRC_AT + r]);
+        mine = add_gl(mul_gl(tables[VS_AT + r * (WIDTH - 1) + j], s0), mine);
+        w0 = add_gl(mul_small(s0, MDS0TO0), sum);
     }
+    if (q == 0) mine = w0;
 
+    // the second half's full rounds, all recorded
 #pragma unroll 1
-    for (int r = 0; r < HALF_FULL; ++r)
-        full_round(s, HALF_FULL + N_PARTIAL + r, out, START_FULL_1 + WIDTH * r, L, i);
-#pragma unroll
-    for (int j = 0; j < WIDTH; ++j) out[(START_OUTPUT + j) * L + i] = canonical(s[j]);
+    for (int r = 0; r < HALF_FULL; ++r, b ^= 1)
+        mine = fill_full_round(mine, tables, HALF_FULL + N_PARTIAL + r, START_FULL_1 + WIDTH * r,
+                               stage[b][g], owner, store, q, m, d0, out, L, lane);
+    if (store) out[(START_OUTPUT + q) * L + lane] = canonical(mine);
 }
 
-// acc <- acc * alpha + c_i in GF(p)[X]/(X^2 - 7), every accumulator stored
+// ------------------------------------------------------- ext2_reduce_chain
+struct ext2 {
+    u64 a, b;   // a + b X
+};
+
+__device__ __forceinline__ ext2 ext2_mul(ext2 x, ext2 y) {
+    return {add_gl(mul_gl(x.a, y.a), mul_small(mul_gl(x.b, y.b), 7)),
+            add_gl(mul_gl(x.a, y.b), mul_gl(x.b, y.a))};
+}
+
+__device__ __forceinline__ ext2 ext2_add(ext2 x, ext2 y) {
+    return {add_gl(x.a, y.a), add_gl(x.b, y.b)};
+}
+
+__device__ __forceinline__ ext2 ext2_shfl_up(ext2 x, int d) {
+    return {__shfl_up_sync(FULL_MASK, x.a, d), __shfl_up_sync(FULL_MASK, x.b, d)};
+}
+
+// coefficient i of the lane, 0 past the end
+__device__ __forceinline__ ext2 chain_coeff(const u64* __restrict__ coeffs, int i, int k,
+                                            long long L, long long lane) {
+    if (i >= k) return {0, 0};
+    return {coeffs[(2ll * i) * L + lane], coeffs[(2ll * i + 1) * L + lane]};
+}
+
+// One level of the scan over two chunks: B_t += m B_(t - d) in each, m the
+// multiplier of the d steps before (alpha^d). Below d there is no step at
+// that distance and B_t += m * 0 leaves B_t's word as it is; the products
+// run on every thread, so that the level is one block of code the
+// compiler interleaves (under a branch on t, each product waited on the
+// one before it).
+__device__ __forceinline__ void chain_level(ext2& B0, ext2& B1, ext2 m, int t, int d) {
+    ext2 up0 = ext2_shfl_up(B0, d), up1 = ext2_shfl_up(B1, d);
+    if (t < d) up0 = up1 = {0, 0};
+    B0 = ext2_add(B0, ext2_mul(m, up0));
+    B1 = ext2_add(B1, ext2_mul(m, up1));
+}
+
+// The chunk's accumulators from the carry: x_t = alpha^(t + 1) carry + B_t,
+// stored where step base + t exists; returns thread 31's, the next carry.
+__device__ __forceinline__ ext2 chain_finish(ext2 B, ext2 at, ext2 carry, int base, int t,
+                                             int k, u64* __restrict__ out, long long L,
+                                             long long lane) {
+    const ext2 x = ext2_add(ext2_mul(at, carry), B);
+    const int i = base + t;
+    if (i < k) {
+        out[(2ll * i) * L + lane] = canonical(x.a);
+        out[(2ll * i + 1) * L + lane] = canonical(x.b);
+    }
+    return {__shfl_sync(FULL_MASK, x.a, 31), __shfl_sync(FULL_MASK, x.b, 31)};
+}
+
+// Thread t takes steps base + t and base + 32 + t of each pair of chunks.
+// The first pair's scan also scans the maps' multipliers, A_t <- A_t
+// A_(t - d) (A_t * 1 below d): before level l, A_t = alpha^(2^l) for
+// t >= 2^l (kept in m[l] for the later pairs), and after the last,
+// A_t = alpha^(t + 1). The two chunks' scans and the multipliers' are
+// independent: each level is one product deep.
 __global__ void __launch_bounds__(CHAIN_THREADS)
 ext2_reduce_chain_kernel(const u64* __restrict__ alpha, const u64* __restrict__ acc,
                          const u64* __restrict__ coeffs, u64* __restrict__ out,
                          int k, long long L) {
-    long long i = (long long)blockIdx.x * CHAIN_THREADS + threadIdx.x;
-    if (i >= L) return;
-    const u64 a0 = alpha[i], a1 = alpha[L + i];
-    u64 x0 = acc[i], x1 = acc[L + i];
+    const long long lane = blockIdx.x;
+    const int t = threadIdx.x;
+    ext2 B0 = chain_coeff(coeffs, t, k, L, lane);
+    ext2 B1 = chain_coeff(coeffs, 32 + t, k, L, lane);
+    ext2 A = {alpha[lane], alpha[L + lane]};
+    ext2 carry = {acc[lane], acc[L + lane]};
+    ext2 m[5];
+#pragma unroll
+    for (int l = 0; l < 5; ++l) {
+        const int d = 1 << l;
+        ext2 up = ext2_shfl_up(A, d);
+        if (t < d) up = {1, 0};
+        m[l] = A;
+        chain_level(B0, B1, A, t, d);
+        A = ext2_mul(A, up);
+    }
 #pragma unroll 1
-    for (int j = 0; j < k; ++j) {
-        const u64 t0 = add_gl(mul_gl(x0, a0), mul_gl(mul_gl(x1, a1), 7ull));
-        const u64 t1 = add_gl(mul_gl(x0, a1), mul_gl(x1, a0));
-        x0 = add_gl(t0, coeffs[(2 * j) * L + i]);
-        x1 = add_gl(t1, coeffs[(2 * j + 1) * L + i]);
-        out[(2 * j) * L + i] = canonical(x0);
-        out[(2 * j + 1) * L + i] = canonical(x1);
+    for (int base = 0;; base += 64) {
+        // the next pair's coefficients are in flight while this one ends
+        const ext2 next0 = chain_coeff(coeffs, base + 64 + t, k, L, lane);
+        const ext2 next1 = chain_coeff(coeffs, base + 96 + t, k, L, lane);
+        carry = chain_finish(B0, A, carry, base, t, k, out, L, lane);
+        if (base + 32 >= k) break;
+        carry = chain_finish(B1, A, carry, base + 32, t, k, out, L, lane);
+        if (base + 64 >= k) break;
+        B0 = next0;
+        B1 = next1;
+#pragma unroll
+        for (int l = 0; l < 5; ++l) chain_level(B0, B1, m[l], t, 1 << l);
     }
 }
+
+// an empty kernel: the least time a launch of this library takes
+__global__ void witness_empty_kernel() {}
 
 extern "C" {
 
 // Copies the fill's FILL_TABLE_WORDS table words (host memory) into
-// FILL_TABLES.
+// FILL_TABLES on the current device.
 int witness_set_tables(const void* host_u64) {
     return (int)cudaMemcpyToSymbol(FILL_TABLES, host_u64, sizeof(u64) * FILL_TABLE_WORDS);
 }
@@ -215,7 +333,7 @@ int witness_table_words() { return FILL_TABLE_WORDS; }
 int poseidon_gate_fill(const void* in, const void* swap, void* out, long long L,
                        void* stream) {
     if (L <= 0) return 0;
-    long long blocks = (L + FILL_THREADS - 1) / FILL_THREADS;
+    long long blocks = (L + SPLIT_PERMS - 1) / SPLIT_PERMS;
     poseidon_gate_fill_kernel<<<(unsigned)blocks, FILL_THREADS, 0, (cudaStream_t)stream>>>(
         (const u64*)in, (const u64*)swap, (u64*)out, L);
     return (int)cudaGetLastError();
@@ -226,9 +344,14 @@ int poseidon_gate_fill(const void* in, const void* swap, void* out, long long L,
 int ext2_reduce_chain(const void* alpha, const void* acc, const void* coeffs, void* out,
                       int k, long long L, void* stream) {
     if (L <= 0 || k <= 0) return 0;
-    long long blocks = (L + CHAIN_THREADS - 1) / CHAIN_THREADS;
-    ext2_reduce_chain_kernel<<<(unsigned)blocks, CHAIN_THREADS, 0, (cudaStream_t)stream>>>(
+    ext2_reduce_chain_kernel<<<(unsigned)L, CHAIN_THREADS, 0, (cudaStream_t)stream>>>(
         (const u64*)alpha, (const u64*)acc, (const u64*)coeffs, (u64*)out, k, L);
+    return (int)cudaGetLastError();
+}
+
+// one launch of the empty kernel, one block of 32 threads
+int witness_empty(void* stream) {
+    witness_empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
     return (int)cudaGetLastError();
 }
 

@@ -148,3 +148,30 @@ def load(name: str) -> ctypes.CDLL:
         build_all([name])
         lib = _libs[name] = ctypes.CDLL(str(_target(name)))
     return lib
+
+
+# libraries whose C signatures are bound; devices each library's tables are on
+_bound: set = set()
+_served: dict[str, set] = {}
+
+
+def library_on(name: str, device, bind, upload) -> ctypes.CDLL:
+    """The library `name` for a launch on the CUDA device `device`: loaded
+    and bound (`bind(lib)`) once a process, its tables uploaded
+    (`upload(lib)`) once for each device, inside `torch.cuda.device(device)`
+    and before that device's first launch. A library's `__device__` and
+    `__constant__` tables are symbols of each device, which
+    `cudaMemcpyToSymbol` sets on the current one only."""
+    import torch
+
+    lib = load(name)
+    if name not in _bound:
+        bind(lib)
+        _bound.add(name)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    served = _served.setdefault(name, set())
+    if index not in served:
+        with torch.cuda.device(index):
+            upload(lib)
+        served.add(index)
+    return lib

@@ -40,9 +40,6 @@ KERNEL = "bridge_permute12"
 # Kernel launches made by `permute` since the count was last set to 0.
 LAUNCHES = {KERNEL: 0}
 
-_ready: list = []
-
-
 # Tables of the kernel's schedule (csrc/poseidon_bn254.cu), as python ints
 # mod q in normal form; constant_tables() turns them into the kernel's limbs.
 HALF = R_F // 2             # full rounds before the partial rounds, and after
@@ -249,25 +246,26 @@ def schedule_permute12_ints(words) -> list:
     return out
 
 
-def _library():
-    """Build (at first use) and load the kernel's library, bind its C
-    signatures and upload its constants."""
-    if not _ready:
-        from . import cuda_build
+def _library(device: torch.device):
+    """The kernel's library for a launch on `device`: built at first use,
+    its C signatures bound, its constants uploaded to that device."""
+    from . import cuda_build
 
-        lib = cuda_build.load("poseidon_bn254")
+    def bind(lib):
         # without argtypes ctypes would pass pointers as 32-bit ints
         lib.bridge_permute12.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                          ctypes.c_longlong, ctypes.c_void_p]
         lib.bridge_permute12.restype = ctypes.c_int
         lib.bridge_set_constants.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         lib.bridge_set_constants.restype = ctypes.c_int
+
+    def upload(lib):
         rc, mat = constant_tables()
         err = lib.bridge_set_constants(rc.ctypes.data, mat.ctypes.data)
         if err != 0:
             raise RuntimeError(f"bridge_set_constants: CUDA error {err}")
-        _ready.append(lib)
-    return _ready[0]
+
+    return cuda_build.library_on("poseidon_bn254", device, bind, upload)
 
 
 def permute_plain(state: torch.Tensor) -> torch.Tensor:
@@ -288,7 +286,7 @@ def permute(state: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"permute: no kernel for device {state.device}")
     if not state.is_contiguous():
         raise ValueError("permute: the state must be contiguous")
-    lib = _library()
+    lib = _library(state.device)
     out = torch.empty_like(state)
     # asynchronous, on PyTorch's current stream (see poseidon_kernel.permute)
     with torch.cuda.device(state.device):

@@ -85,7 +85,6 @@ _UPLOADS = {"poseidon_gl": ("poseidon_set_round_constants",
                             "poseidon_set_partial_constants"),
             "poseidon_gl_mma": ("poseidon_mma_set_round_constants",
                                 "poseidon_mma_set_partial_constants")}
-_ready: dict[str, ctypes.CDLL] = {}
 
 
 def _use_mxu() -> int:
@@ -99,33 +98,32 @@ def _use_mxu() -> int:
     return int(os.environ.get("SVT_POSEIDON_MXU", "0") or 0)
 
 
-def _library(name: str):
-    """Build (at first use) and load the library `name`, bind its C
-    signatures and upload its constant tables (a library's device memory
-    is its own)."""
-    lib = _ready.get(name)
-    if lib is None:
-        from . import cuda_build
+def _library(name: str, device: torch.device):
+    """The library `name` for a launch on `device`: built at first use,
+    its C signatures bound, its constant tables uploaded to that device (a
+    library's device memory is its own)."""
+    from . import cuda_build
 
-        lib = cuda_build.load(name)
+    def bind(lib):
         for kernel, home in _HOME.items():
-            if home != name:
-                continue
-            # without argtypes ctypes would pass pointers as 32-bit ints;
-            # every kernel takes its grid as threads_per_perm
-            fn = getattr(lib, kernel)
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                           ctypes.c_int, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
+            if home == name:
+                # without argtypes ctypes would pass pointers as 32-bit
+                # ints; every kernel takes its grid as threads_per_perm
+                fn = getattr(lib, kernel)
+                fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                               ctypes.c_int, ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+        for setter in _UPLOADS[name]:
+            getattr(lib, setter).argtypes = [ctypes.c_void_p]
+            getattr(lib, setter).restype = ctypes.c_int
+
+    def upload(lib):
         for setter, table in zip(_UPLOADS[name], schedule_tables()):
-            upload = getattr(lib, setter)
-            upload.argtypes = [ctypes.c_void_p]
-            upload.restype = ctypes.c_int
-            err = upload(table.ctypes.data)
+            err = getattr(lib, setter)(table.ctypes.data)
             if err != 0:
                 raise RuntimeError(f"{setter}: CUDA error {err}")
-        _ready[name] = lib
-    return lib
+
+    return cuda_build.library_on(name, device, bind, upload)
 
 
 def threads_per_permutation(lanes: int, mxu: int = 0) -> int:
@@ -185,7 +183,7 @@ def _launch(state: torch.Tensor, mxu: int) -> torch.Tensor:
     """The kernel of `mxu` on a contiguous state, in the grid its lane count
     takes; a launch is counted where one is made (none for 0 lanes)."""
     kernel = KERNELS[mxu]
-    launch = getattr(_library(_HOME[kernel]), kernel)
+    launch = getattr(_library(_HOME[kernel], state.device), kernel)
     lanes = state.numel() // WIDTH
     out = torch.empty_like(state)
     if lanes == 0:                      # the C entry points launch nothing

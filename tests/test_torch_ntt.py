@@ -145,13 +145,25 @@ rank, world, store, src, out = sys.argv[1:]
 rank, world = int(rank), int(world)
 torch.set_num_threads(1)
 assert init_distributed("file://" + store, world, rank, device="cpu")
-mesh = make_mesh(world, axis="ntt")
-got = {}
-for key, x in np.load(src).items():
-    n = x.shape[-1]
-    lo, hi = host_batch_slice(n, rank, world)
-    got[key] = gl64.to_u64(ntt.ntt_4step(gl64.from_u64(x[..., lo:hi], "cpu"), mesh, "ntt"))
-np.savez(out, **got)
+
+
+def run():
+    mesh = make_mesh(world, axis="ntt")
+    got = {}
+    for key, x in np.load(src).items():
+        n = x.shape[-1]
+        lo, hi = host_batch_slice(n, rank, world)
+        got[key] = gl64.to_u64(ntt.ntt_4step(gl64.from_u64(x[..., lo:hi], "cpu"), mesh,
+                                             "ntt"))
+    np.savez(out, **got)
+
+
+# The mesh holds the world's process group. A gloo group whose ranks have
+# exchanged data and that is still alive when the interpreter exits aborts
+# the process in its teardown now and then ("terminate called without an
+# active exception", after the output is written): so the mesh goes, with
+# run()'s frame, before the group is destroyed.
+run()
 torch.distributed.destroy_process_group()
 """
 

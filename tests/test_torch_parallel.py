@@ -37,6 +37,7 @@ TIMEOUT = 240
 
 # One rank of a gloo world: both forms of the sharded verifier on its slice.
 RANK = r"""
+import gc
 import sys
 import numpy as np
 import torch
@@ -52,21 +53,32 @@ rank, world, store, fixture, B, bad, out = sys.argv[1:]
 rank, world, B, bad = int(rank), int(world), int(B), int(bad)
 torch.set_num_threads(1)
 assert init_distributed("file://" + store, world, rank, device="cpu")
-mesh = make_mesh(world)
-proofs, common, vk = load_proofs(fixture)
-batched = FS.batched_arrays(proofs[:B])
-batched["open_wires"][bad, 2, 0] ^= np.uint64(1)
-shard, verify_fn, agg_fn = PB.make_sharded_verifier(common, vk, mesh, device="cpu",
-                                                    batched=True)
-pa = shard(batched)
-ok = verify_fn(pa)
-digests, count = agg_fn(pa["public_inputs"], ok)
-ok2, digests2, count2 = PB.make_batch_verifier(common, vk, mesh, device="cpu")(pa)
-np.savez(out, rows=pa["public_inputs"].shape[0],
-         batched_ok=ok.numpy(), batched_digests=gl64.to_u64(digests),
-         batched_count=count, per_proof_ok=ok2.numpy(),
-         per_proof_digests=gl64.to_u64(digests2), per_proof_count=count2)
-dist.barrier()
+
+
+def run():
+    mesh = make_mesh(world)
+    proofs, common, vk = load_proofs(fixture)
+    batched = FS.batched_arrays(proofs[:B])
+    batched["open_wires"][bad, 2, 0] ^= np.uint64(1)
+    shard, verify_fn, agg_fn = PB.make_sharded_verifier(common, vk, mesh, device="cpu",
+                                                        batched=True)
+    pa = shard(batched)
+    ok = verify_fn(pa)
+    digests, count = agg_fn(pa["public_inputs"], ok)
+    ok2, digests2, count2 = PB.make_batch_verifier(common, vk, mesh, device="cpu")(pa)
+    np.savez(out, rows=pa["public_inputs"].shape[0],
+             batched_ok=ok.numpy(), batched_digests=gl64.to_u64(digests),
+             batched_count=count, per_proof_ok=ok2.numpy(),
+             per_proof_digests=gl64.to_u64(digests2), per_proof_count=count2)
+    dist.barrier()
+
+
+# the mesh (and the verifiers' closures over it) hold the world's process
+# group: they go with run()'s frame, and any cycle with the collector,
+# before the group is destroyed, since a gloo group alive at the
+# interpreter's exit can abort it (tests/test_torch_ntt.py)
+run()
+gc.collect()
 dist.destroy_process_group()
 """
 

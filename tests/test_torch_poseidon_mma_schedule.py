@@ -162,7 +162,8 @@ def test_launch_passes_the_grid_and_counts_launches(monkeypatch, mxu, lanes):
         return 0
 
     kernel = pk.KERNELS[mxu]
-    monkeypatch.setattr(pk, "_library", lambda name: SimpleNamespace(**{kernel: fake_kernel}))
+    monkeypatch.setattr(pk, "_library",
+                        lambda name, device: SimpleNamespace(**{kernel: fake_kernel}))
     monkeypatch.setattr(torch.cuda, "device", lambda device: nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda: SimpleNamespace(cuda_stream=0))
@@ -204,8 +205,10 @@ def test_library_binds_the_grid_argument_and_both_tables(monkeypatch):
 
     fake = _FakeLibrary()
     monkeypatch.setattr(cuda_build, "load", lambda name: fake)
-    monkeypatch.setattr(pk, "_ready", {})
-    assert pk._library("poseidon_gl_mma") is fake
+    monkeypatch.setattr(cuda_build, "_bound", set())
+    monkeypatch.setattr(cuda_build, "_served", {})
+    monkeypatch.setattr(torch.cuda, "device", lambda device: nullcontext())
+    assert pk._library("poseidon_gl_mma", torch.device("cuda", 0)) is fake
     rc, partial = pk.schedule_tables()
     assert dict((name, args[0]) for name, args in fake.log) == {
         "poseidon_mma_set_round_constants": rc.tolist(),

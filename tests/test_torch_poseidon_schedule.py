@@ -15,6 +15,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from stark_verifier_tpu.ops import gl64_np
 from stark_verifier_tpu_torch.ops import _poseidon_gl_constants as tconst
@@ -92,7 +93,9 @@ def test_tables_are_the_ports_constants():
 
 
 def test_kernel_source_declares_the_tables_the_model_uses():
-    src = SOURCE.read_text()
+    # the narrow grid's matrix and constants live in the header it shares
+    # with the witness fill
+    src = SOURCE.read_text() + (SOURCE.parent / "poseidon_split.cuh").read_text()
     # one table, the round constants and then the forwarded ones, as the
     # two uploads write it
     assert re.search(r"#define PARTIAL_AT \(N_ROUNDS \* WIDTH\)", src)
@@ -212,13 +215,16 @@ class _FakeLibrary:
 def test_wrapper_binds_each_library_and_uploads_its_tables(monkeypatch, library):
     """What `_library` does once a library is built: every kernel takes the
     grid argument, and each library both tables."""
+    import contextlib
     import ctypes
     from stark_verifier_tpu_torch.ops import cuda_build
 
     fake = _FakeLibrary()
     monkeypatch.setattr(cuda_build, "load", lambda name: fake)
-    monkeypatch.setattr(pk, "_ready", {})
-    assert pk._library(library) is fake
+    monkeypatch.setattr(cuda_build, "_bound", set())
+    monkeypatch.setattr(cuda_build, "_served", {})
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    assert pk._library(library, torch.device("cuda", 0)) is fake
     rc, partial = pk.schedule_tables()
     uploaded = {name: args[0] for name, _, args in fake.log}
     prefix = "poseidon" if library == "poseidon_gl" else "poseidon_mma"

@@ -609,6 +609,10 @@ def main():
                       "nvidia_smi": smi.stdout.strip()}), flush=True)
 
     src = (cuda_build.CSRC / cuda_build.SOURCES["poseidon_gl"]).read_text()
+    # the narrow grid's MDS pieces live in a header: inline it, so that the
+    # builds below can replace them
+    split = (cuda_build.CSRC / "poseidon_split.cuh").read_text().replace("#pragma once\n", "")
+    src = src.replace('#include "poseidon_split.cuh"\n', split)
     for text in (MAD_ASM, STAGE, TABLES_GLOBAL, TWO_SUMS):
         if src.count(text) != 1:
             sys.exit(f"the kernel's source is not as this script expects:\n{text}")
@@ -630,7 +634,7 @@ def main():
     procs = {n: subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                  text=True) for n, (cmd, _, _) in jobs.items()}
     cuda_build.load("poseidon_gl")          # the kept library, built meanwhile
-    pk._library("poseidon_gl")
+    pk._library("poseidon_gl", torch.device("cuda"))
     launch, ptxas, sass = {}, {}, {}
     for n, proc in procs.items():
         log, _ = proc.communicate()
@@ -654,7 +658,7 @@ def main():
     print(json.dumps({"ptxas": ptxas}), flush=True)
     print(json.dumps({"sass": sass if sass["kept"] is not None
                       else "not measured: no cuobjdump"}), flush=True)
-    kept = pk._library("poseidon_gl").poseidon_permute
+    kept = pk._library("poseidon_gl", torch.device("cuda")).poseidon_permute
 
     # (build, threads a permutation) pairs, held against permute_plain at
     # every lane count and timed at the path's and those between them; the

@@ -472,8 +472,8 @@ def main():
     procs = {n: subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                  text=True) for n, (cmd, _, _) in jobs.items()}
     cuda_build.load("poseidon_gl_mma")          # the kept library, built meanwhile
-    kept_lib = pk._library("poseidon_gl_mma")
-    pk._library("poseidon_gl")
+    kept_lib = pk._library("poseidon_gl_mma", torch.device("cuda"))
+    pk._library("poseidon_gl", torch.device("cuda"))
     libs, ptxas, bodies, counts = {"kept": kept_lib}, {}, {}, {}
     for n, proc in procs.items():
         log, _ = proc.communicate()
