@@ -50,21 +50,33 @@ needs one CUDA card (built for Hopper, sm_90a), `nvcc`, and no network. It
      bridge launches and 2 Poseidon launches a batch (the public-input
      hash) and no other kernel, challenges equal to the CPU path's, proof 0
      through make_verifier_fn with the same bit, and ms a batch;
-  8. drives the multi-rank verifier on a world of one rank (NCCL): the zk20
+  8. drives the compiled verifier (models/flagship.compiled_verifier, a
+     CUDA graph captured once and replayed) on both batches, zk20 (1024,
+     mode "batched") and wrapped (256): one eager batch first under
+     torch.cuda.set_sync_debug_mode("error") (no host sync on the path),
+     then the capture, which counts the eager batch's launches exactly,
+     its capture and instantiate seconds, the graph's node count and peak
+     device bytes; the clean and the corrupted batch replayed through one
+     graph with accept bits equal to the eager path's (the corrupted lanes,
+     and only those, rejected), no launch counted on the host by a replay,
+     ms a batch (median of 5 replays) beside the eager ms; mode "vmap" on
+     the first 4 zk20 proofs, clean and with proof 2 corrupted, equal to the
+     batched path's bits; a dict of another shape refused;
+  9. drives the multi-rank verifier on a world of one rank (NCCL): the zk20
      batch of 1024 through make_sharded_verifier (batch in lanes), clean and
      corrupted, with its accept count and the digest chain (3,072
      permutations of one lane, counted), the digest equal to the same chain
-     run on the CPU with the plain permutation; make_batch_verifier on 64
+     run on the CPU with the plain permutation; make_batch_verifier on 16
      proofs;
-  9. runs the NTT on the card: coset_lde (rate 3, shift 7) of the prover's
+ 10. runs the NTT on the card: coset_lde (rate 3, shift 7) of the prover's
      three degree-2^13 shapes ([1080 | 160 | 128, 2^13] -> 2^16 points a
      row), rows checked against the numpy oracle, intt(ntt(x)) == x, and
      ntt_4step on the one-rank world equal to ntt;
- 10. turns proof 0 of the zk20 and of the wrapped fixture into plonky2's
+ 11. turns proof 0 of the zk20 and of the wrapped fixture into plonky2's
      bytes and JSON and back, verifies the decoded proofs on the card (a
      flipped opening rejected), and checks that bytes decoded with the other
      circuit's CommonData raise;
- 11. proves on the card: a 2^20-member access set (its keys hashed in one
+ 12. proves on the card: a 2^20-member access set (its keys hashed in one
      Poseidon launch of 2^20 lanes, its tree of 20 levels; the root equal
      to the same tree built with the plain permutation, 8 Merkle paths
      verified), the Semaphore circuit (degree 2^9, 135 wires, its verifying
@@ -73,13 +85,15 @@ needs one CUDA card (built for Hopper, sm_90a), `nvcc`, and no network. It
      launches by lane count, peak device bytes), all 64 accepted by the
      batched verifier on the card and a flipped opening rejected, and
      AccessSet.verify_signals_np on the card accepting a signal and
-     rejecting one with a changed topic; 2 signals proved with the kernel,
+     rejecting one with a changed topic; the 64 signals proved again with
+     max_lanes=32 equal, proof by proof, two proves of 32 from the same
+     generators; 2 signals proved with the kernel,
      with the plain permutation on the card and on the CPU (a spawned
      process beside the card's work) give equal proofs,
      whose grind witnesses are the lowest a CPU scan finds; the three
      Poseidon kernels held against the plain version and timed at the
      prover's widest lane counts (262,144, 524,288, 1,048,576);
- 12. runs recursion on the card, on the prove phase's set and signals:
+ 13. runs recursion on the card, on the prove phase's set and signals:
      the two witness kernels (poseidon_gate_fill, ext2_reduce_chain)
      against their plain versions at 1 to 1,025 lanes and 1 to 100 chain
      steps, across the chain's chunks of 32 (edge words, non-canonical swap
@@ -99,7 +113,7 @@ needs one CUDA card (built for Hopper, sm_90a), `nvcc`, and no network. It
      card and rejected with a flipped nullifier; aggregate_signals_np's
      digest equal to the same tree on the CPU with the plain permutation,
      its attestation rechecked, and rejected with a changed count;
- 13. prints one JSON line per phase, the kernels' line, and as the last line
+ 14. prints one JSON line per phase, the kernels' line, and as the last line
      {"ok": true, "device": {...}}.
 
 `--only PHASE[,PHASE...]` runs the device and build phases and the named
@@ -114,6 +128,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import copy
+import ctypes
 import functools
 import json
 import multiprocessing
@@ -1015,6 +1030,168 @@ def phase_wrapped(device, rows):
           "peak_device_bytes": torch.cuda.max_memory_allocated()})
 
 
+def graph_nodes(graph):
+    """The node count of a captured graph: libcuda's cuGraphGetNodes on
+    the graph that CompiledVerifier keeps."""
+    n = ctypes.c_size_t(0)
+    err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n))
+    check(err == 0, f"cuGraphGetNodes failed: CUDA error {err}")
+    return n.value
+
+
+def launch_counts():
+    """Every kernel's launch count since reset_counts(), the nonzero ones."""
+    counts = {**pk.LAUNCHES, **bk.LAUNCHES, **probes.LAUNCHES, **WK.LAUNCHES}
+    return {k: c for k, c in counts.items() if c}
+
+
+def timed_s(fn, reps):
+    """Host seconds of each of `reps` calls, each clock ending in a
+    synchronise."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times
+
+
+def compiled_cell(common, vk, pa, pa_bad, expect, mode="batched", eager_reps=2):
+    """compiled_verifier against the eager path on one batch, clean and
+    corrupted (item 8 of the module's docstring)."""
+    maker = FS.make_verifier_fn_batched if mode == "batched" else FS.make_verifier_fn
+    fn, _ = maker(common, vk)  # device="cuda"
+    n = int(expect.numel())
+    fn(pa)  # warm: libraries bound, tables uploaded
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        eager = fn(pa)
+        torch.cuda.synchronize()
+        eager_s = [time.perf_counter() - t0]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    eager_peak = torch.cuda.max_memory_allocated()
+    eager_launches = launch_counts()
+    eager_bad = fn(pa_bad)
+    check(bool(eager.all()), f"{mode}: the eager path rejected an honest proof")
+    check(torch.equal(eager_bad.cpu(), expect),
+          f"{mode}: the eager path rejected "
+          f"{torch.nonzero(~eager_bad.cpu()).flatten().tolist()}")
+    eager_s += timed_s(lambda: fn(pa), eager_reps)
+
+    # the bytes the compiled verifier keeps: its graph's pool, its buffers
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    comp = FS.compiled_verifier(common, vk, pa, mode=mode)  # device="cuda"
+    compile_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    kept_bytes = torch.cuda.memory_reserved() - reserved
+    counted = launch_counts()
+    # the warm-up is one eager call, the capture another
+    check(counted == {k: 2 * c for k, c in eager_launches.items()},
+          f"{mode}: warm-up and capture counted {counted}, one eager batch "
+          f"{eager_launches}")
+    nodes = graph_nodes(comp.graph)
+
+    reset_counts()
+    first = comp(pa)
+    kept = first.clone()
+    second = comp(pa_bad)
+    torch.cuda.synchronize()
+    check(not launch_counts(), f"{mode}: a replay counted launches {launch_counts()}")
+    check(first.dtype == torch.bool and tuple(first.shape) == (n,)
+          and torch.equal(first, eager) and torch.equal(first, kept),
+          f"{mode}: the replay's bits differ from the eager path's")
+    check(torch.equal(second, eager_bad),
+          f"{mode}: the corrupted batch's replayed bits differ from the eager path's")
+    replay_s = timed_s(lambda: comp(pa), 5)
+    check(torch.equal(comp(pa), eager), f"{mode}: a later replay's bits differ")
+    eager_ms = float(np.median(eager_s)) * 1e3
+    replay_ms = float(np.median(replay_s)) * 1e3
+    return comp, {
+        "mode": mode, "batch": n, "equal_to_eager": True,
+        "rejected": torch.nonzero(~second.cpu()).flatten().tolist(),
+        "no_sync_in_eager_batch": True, "launches_at_capture": eager_launches,
+        "capture_s": comp.capture_s, "instantiate_s": comp.instantiate_s,
+        "compile_s": compile_s, "graph_nodes": nodes, "peak_device_bytes": peak,
+        "eager_peak_device_bytes": eager_peak, "kept_device_bytes": kept_bytes,
+        "eager_ms_per_batch": eager_ms, "eager_ms_all": [t * 1e3 for t in eager_s],
+        "replay_ms_per_batch": replay_ms, "replay_ms_all": [t * 1e3 for t in replay_s],
+        "eager_proofs_per_s": n / (eager_ms * 1e-3),
+        "replay_proofs_per_s": n / (replay_ms * 1e-3)}
+
+
+def phase_compiled(device, rows):
+    """The compiled verifier on the card (item 8 of the module's docstring)."""
+    out = {}
+    default = pk.KERNELS[pk._use_mxu()]
+    proofs, common, vk = load_fixture()
+    while len(proofs) < BATCH:
+        proofs = proofs + proofs
+    batched = FS.batched_arrays(proofs[:BATCH])
+    _, to_device = FS.make_verifier_fn_batched(common, vk)
+    lanes = [3, BATCH // 10, BATCH // 2, BATCH * 7 // 10, BATCH - 24]
+    expect = torch.ones(BATCH, dtype=torch.bool)
+    expect[lanes] = False
+    pa = to_device(batched)
+    comp, out["zk20"] = compiled_cell(common, vk, pa,
+                                      to_device(corrupt(batched, lanes)), expect)
+    check(out["zk20"]["launches_at_capture"]
+          == {default: sum(ZK20_LAUNCHES_BY_LANES.values())},
+          f"zk20: launches at capture {out['zk20']['launches_at_capture']}")
+    # a dict of another shape, or on another device, is refused
+    for name, other in (("half the proofs", {k: v[: BATCH // 2] for k, v in pa.items()}),
+                        ("the CPU", {k: v.cpu() for k, v in pa.items()})):
+        try:
+            comp(other)
+        except ValueError:
+            continue
+        fail(f"the compiled zk20 verifier took a dict of {name}")
+    out["refuses_other_shapes"] = True
+    del comp
+
+    # mode "vmap": the first 4 proofs one by one, proof 2 corrupted; the
+    # per_proof phase holds the per-proof bits equal to the batched path's
+    four = FS.batched_arrays(proofs[:4])
+    pa4, pa4_bad = to_device(four), to_device(corrupt(four, [2] * 5))
+    want4 = torch.tensor([True, True, False, True])
+    fn4, _ = FS.make_verifier_fn_batched(common, vk)
+    check(torch.equal(fn4(pa4_bad).cpu(), want4) and bool(fn4(pa4).all()),
+          "zk20: the batched path's bits of the first 4 proofs")
+    comp4, out["zk20_vmap"] = compiled_cell(common, vk, pa4, pa4_bad, want4,
+                                            mode="vmap", eager_reps=0)
+    del comp4
+
+    # the bn254-wrapped batch
+    wproofs, wcommon, wvk = load_proofs(WRAPPED)
+    while len(wproofs) < WRAPPED_BATCH:
+        wproofs = wproofs + wproofs
+    wbatched = FS.batched_arrays(wproofs[:WRAPPED_BATCH])
+    _, wto_device = FS.make_verifier_fn_batched(wcommon, wvk)
+    wlanes = [1, WRAPPED_BATCH * 3 // 10, WRAPPED_BATCH // 2, WRAPPED_BATCH - 1]
+    wexpect = torch.ones(WRAPPED_BATCH, dtype=torch.bool)
+    wexpect[wlanes] = False
+    wcomp, out["wrapped"] = compiled_cell(
+        wcommon, wvk, wto_device(wbatched),
+        wto_device(corrupt_wrapped(wbatched, wlanes)), wexpect)
+    del wcomp
+    check(out["wrapped"]["launches_at_capture"] == {"bridge_permute12": 230, default: 2},
+          f"wrapped: launches at capture {out['wrapped']['launches_at_capture']}")
+    emit({"phase": "compiled", **out})
+
+
 def cpu_digest(pis_u64, ok):
     """digest_chain on the CPU with the plain permutation, in a process of
     its own (some 20 ms a permutation there): uint64 [4]."""
@@ -1026,7 +1203,7 @@ def cpu_digest(pis_u64, ok):
 
 # proofs of the sharded phase's make_batch_verifier leg, which verifies
 # them one by one
-BATCH_VERIFIER_PROOFS = 64
+BATCH_VERIFIER_PROOFS = 16
 
 
 def phase_sharded(device):
@@ -1389,6 +1566,25 @@ def phase_prove(device):
     for a, b in zip(counted, proofs):
         check(not proof_arrays_equal(V.proof_to_arrays(a), V.proof_to_arrays(b)),
               "prove: two runs under the same seeds differ")
+    # max_lanes: the 64 in chunks of 32 equal two proves of 32 from the same
+    # two generators
+    half = PROVE_BATCH // 2
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    chunked = PV.prove_batch(data, inputs, PROVE_BATCH, max_lanes=half, **prove_rngs())
+    torch.cuda.synchronize()
+    out["max_lanes_32"] = {"prove_s": time.perf_counter() - t0,
+                           "peak_device_bytes": torch.cuda.max_memory_allocated()}
+    gens = prove_rngs()
+    halves = []
+    for s in (0, half):
+        sub = {t: v[..., s:s + half] for t, v in inputs.items()}
+        halves += PV.prove_batch(data, sub, half, max_lanes=0, **gens)
+    for b, (x, y) in enumerate(zip(chunked, halves)):
+        diff = proof_arrays_equal(V.proof_to_arrays(x), V.proof_to_arrays(y))
+        check(not diff, f"prove: max_lanes proof {b} differs from two proves of "
+                        f"{half} in {diff}")
+    out["max_lanes_32"]["equal_to_two_proves"] = True
 
     # ---- 4. verified on the card; a flipped opening rejected
     for b, p in enumerate(proofs):
@@ -1777,7 +1973,7 @@ def phase_recursion(device, rows):
 
 
 PHASES = ("poseidon_kernels", "probes", "main_path", "per_proof", "bridge_kernel",
-          "wrapped", "sharded", "ntt", "codec", "prove", "recursion")
+          "wrapped", "compiled", "sharded", "ntt", "codec", "prove", "recursion")
 
 
 def main():

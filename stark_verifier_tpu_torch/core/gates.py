@@ -22,7 +22,7 @@ import re
 
 import numpy as np
 
-from ..ops import ext2
+from ..ops import ext2, gl64
 from ..ops._poseidon_gl_constants import (
     ALL_ROUND_CONSTANTS,
     FAST_PARTIAL_FIRST_ROUND_CONSTANT,
@@ -664,8 +664,12 @@ def _horner_accs(F, W, start_accs, n):
 
 # ------------------------------------------------ vectorized Poseidon eval
 def _const_rows(F, vals, lead, nd):
-    """u64 constants -> int64[*lead, 1...] broadcasting over nd lane dims."""
-    return F.from_u64(np.asarray(vals, np.uint64).reshape(lead + (1,) * nd))
+    """u64 constants -> int64[*lead, 1...] broadcasting over nd lane dims.
+    `vals` is one of the module's constant tables, uploaded once a device
+    (gl64.table, keyed by the table's identity)."""
+    t = gl64.table(("gate_rows", id(vals)), F.device,
+                   lambda: np.asarray(vals, np.uint64))
+    return t.reshape(lead + (1,) * nd)
 
 
 def _poseidon_eval_vectorized(gate, R, W):

@@ -23,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops import ext2
+from ..ops import ext2, gl64
 from ..ops import poseidon_gl as pg
 from ..ops.hashers import get_permute
 from .challenger import TapeChallenger, resolve_challenges
@@ -166,7 +166,8 @@ def eval_vanishing_poly(F, common: CommonData, ch, pa, pi_hash):
     l_0 = R.div(zero_poly, denom)
 
     # all k_i * zeta lanes with two stacked base muls
-    kis = F.from_u64(np.asarray(common.k_is, np.uint64))
+    k_is = tuple(common.k_is)
+    kis = gl64.table(("k_is", k_is), F.device, lambda: np.asarray(k_is, np.uint64))
     kis = kis.reshape((len(common.k_is),) + (1,) * zeta[0].dim())
     s_ids_st = (F.mul(kis, zeta[0]), F.mul(kis, zeta[1]))
 

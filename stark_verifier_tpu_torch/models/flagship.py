@@ -8,10 +8,12 @@ over int64 tensors on a device: batch-in-lanes (`make_verifier_fn_batched`,
 the unit of throughput) or proof by proof (`make_verifier_fn`, and
 `make_verifier_fn_phased`, which runs the three protocol phases apart).
 All three take the same batched dict and return the accept bits bool[B];
-chip_smoke.py drives them.
+`compiled_verifier` captures the first two, for fixed shapes, in a CUDA
+graph that later calls replay. chip_smoke.py drives them.
 """
 from __future__ import annotations
 
+import time
 from pathlib import Path
 
 import numpy as np
@@ -210,3 +212,100 @@ def make_verifier_fn_batched(common, vk, device="cuda", permute=None,
                                  inner_permute=inner_permute)
 
     return fn, to_device
+
+
+# ------------------------------------------------------- the compiled form
+class CompiledVerifier:
+    """A verifier function fixed to the keys, shapes, dtypes and device of
+    one batched dict, as an XLA executable is fixed to its input shapes.
+
+    On a CUDA device one call of `fn` is captured in a `torch.cuda.CUDAGraph`
+    reading static input buffers (clones of the dict it was built from),
+    after one warm-up call on a side stream that loads the kernel libraries
+    and uploads every constant table (gl64.table, cuda_build.library_on); a
+    call copies its argument into the buffers, replays the graph and returns
+    a copy of the accept bits, which the next replay overwrites. A capture
+    that fails raises: nothing falls back to the eager function. On the CPU
+    the same buffers and copies feed the eager function. `capture_s` and
+    `instantiate_s` are the seconds the two steps took (on the CPU, 0)."""
+
+    def __init__(self, fn, pa: dict, device):
+        self.device = _require_device(device)
+        self._fn = fn
+        self._spec = {k: (tuple(v.shape), v.dtype) for k, v in pa.items()}
+        self._check(pa)
+        self._static = {k: v.clone() for k, v in pa.items()}
+        self.graph, self.capture_s, self.instantiate_s = None, 0.0, 0.0
+        if self.device.type == "cuda":
+            self._capture()
+
+    def _capture(self):
+        with torch.cuda.device(self.device):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                self._fn(self._static)
+            torch.cuda.current_stream().wait_stream(side)
+            torch.cuda.synchronize()
+            # keep_graph: instantiated apart from the capture, timed apart,
+            # and its nodes readable (graph.raw_cuda_graph())
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            t0 = time.perf_counter()
+            with torch.cuda.graph(graph):
+                self._out = self._fn(self._static)
+            t1 = time.perf_counter()
+            graph.instantiate()
+            torch.cuda.synchronize()
+            self.capture_s, self.instantiate_s = t1 - t0, time.perf_counter() - t1
+            self.graph = graph
+
+    def _check(self, pa: dict):
+        if set(pa) != set(self._spec):
+            raise ValueError(f"compiled for keys {sorted(self._spec)}, called with "
+                             f"{sorted(pa)}")
+        for k, v in pa.items():
+            shape, dtype = self._spec[k]
+            if not torch.is_tensor(v) or tuple(v.shape) != shape or v.dtype != dtype:
+                got = (tuple(v.shape), v.dtype) if torch.is_tensor(v) else type(v)
+                raise ValueError(f"{k}: compiled for {shape} {dtype}, called with {got}")
+            if torch.device(v.device) != self.device:
+                raise ValueError(f"{k}: compiled for {self.device}, called with {v.device}")
+
+    def __call__(self, pa: dict) -> torch.Tensor:
+        self._check(pa)
+        for k, v in pa.items():
+            self._static[k].copy_(v)
+        if self.graph is None:
+            return self._fn(self._static)
+        with torch.cuda.device(self.device):
+            self.graph.replay()
+            return self._out.clone()
+
+
+def compiled_verifier(common, vk, pa: dict, cache_path=None, mode="vmap",
+                      device="cuda", permute=None, inner_permute=None):
+    """The verifier compiled for the shapes of `pa` (the dict `to_device`
+    returns), the counterpart of the JAX package's AOT-compiled verifier:
+    `mode="batched"` captures make_verifier_fn_batched's function, "vmap"
+    make_verifier_fn's (proof by proof), both as a CompiledVerifier;
+    "phased" returns make_verifier_fn_phased's function uncompiled, as the
+    JAX package does. `permute` and `inner_permute` are the makers'. A
+    call with other keys, shapes, dtypes or device raises ValueError.
+
+    PyTorch has no serialised form of a CUDA graph, so there is no
+    executable to cache: a `cache_path` raises NotImplementedError. What a
+    later process reuses is the kernels' build directory (ops/cuda_build)."""
+    if cache_path is not None:
+        raise NotImplementedError(
+            "compiled_verifier: a CUDA graph has no serialised form to save or "
+            "load; capture it again in each process (the kernels' builds are "
+            "reused from ops/cuda_build's directory)")
+    makers = {"batched": make_verifier_fn_batched, "vmap": make_verifier_fn,
+              "phased": make_verifier_fn_phased}
+    if mode not in makers:
+        raise ValueError(f"compiled_verifier: mode {mode!r}, not one of {sorted(makers)}")
+    fn, _ = makers[mode](common, vk, device=device, permute=permute,
+                         inner_permute=inner_permute)
+    if mode == "phased":
+        return fn
+    return CompiledVerifier(fn, pa, device)

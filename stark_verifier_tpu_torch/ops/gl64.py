@@ -59,6 +59,26 @@ def from_u64(x, device) -> torch.Tensor:
     return torch.from_numpy(bits).to(device)
 
 
+_TABLES: dict = {}
+
+
+def table(key, device, make) -> torch.Tensor:
+    """A constant table on `device`: `make()` (a numpy array) uploaded at
+    the first call for that key and device, the same tensor returned at
+    every later one. Whatever a verifier call reads from the host goes
+    through here, so that after one warm-up call nothing is copied from host
+    memory, which a CUDA graph's capture refuses (models/flagship.
+    compiled_verifier). Callers must not write to the tensor."""
+    device = torch.device(device)
+    t = _TABLES.get((key, device))
+    if t is None:
+        a = np.asarray(make())
+        if a.dtype == np.uint64:
+            a = a.view(np.int64)
+        t = _TABLES[(key, device)] = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return t
+
+
 def to_u64(x: torch.Tensor) -> np.ndarray:
     """Canonical values as a numpy uint64 array."""
     return canonical(x).cpu().numpy().view(np.uint64)
@@ -269,9 +289,10 @@ def mds12(state):
         s = state.reshape(12, -1)
         n = s.shape[1]
         halves = torch.cat([s & _M32, _shr32(s)], dim=1).to(torch.float64)
-        y = (torch.from_numpy(_MDS12).to(torch.float64) @ halves).to(torch.int64)
+        m = table("mds12_f64", "cpu", lambda: _MDS12.astype(np.float64))
+        y = (m @ halves).to(torch.int64)
         return _fold_halves(y[:, :n], y[:, n:]).reshape(state.shape)
-    m = torch.from_numpy(_MDS12).to(state.device)
+    m = table("mds12", state.device, lambda: _MDS12)
     m = m.reshape((12, 12) + (1,) * (state.dim() - 1))
     s_lo = (m * (state & _M32).unsqueeze(0)).sum(1)
     s_hi = (m * _shr32(state).unsqueeze(0)).sum(1)
@@ -296,11 +317,11 @@ def mds12_bytes(state):
     shape = state.shape
     s = state.reshape(12, -1)
     limbs = torch.cat([(s >> (8 * k)) & 0xFF for k in range(8)], dim=1)
-    m = torch.from_numpy(_MDS12).to(state.device)
     if state.device.type == "cpu":
-        y = m @ limbs
+        y = table("mds12", "cpu", lambda: _MDS12) @ limbs
     else:
-        y = (m.to(torch.float32) @ limbs.to(torch.float32)).to(torch.int64)
+        m = table("mds12_f32", state.device, lambda: _MDS12.astype(np.float32))
+        y = (m @ limbs.to(torch.float32)).to(torch.int64)
     y = y.reshape(12, 8, -1)
     s_lo = sum(y[:, k] << (8 * k) for k in range(4))
     s_hi = sum(y[:, k + 4] << (8 * k) for k in range(4))
@@ -311,7 +332,7 @@ def permute12(state, mds=mds12):
     """Poseidon permutation (t=12, 4+22+4 rounds, x^7, dense MDS) on a
     stacked state int64[12, ...]; canonical output. `mds` is the MDS layer
     (mds12 or mds12_bytes: the same function)."""
-    rc = from_u64(_round_constants(), state.device)
+    rc = table("round_constants", state.device, _round_constants)
     rc = rc.reshape((30, 12) + (1,) * (state.dim() - 1))
     s = state
     for r in range(30):

@@ -41,8 +41,8 @@ P = gl64.P
 
 class _Stages:
     """Marks the stages of one prove_batch call: prints them under
-    SVT_PROVER_VERBOSE, and, when given a dict, records each one's wall
-    time in ms (synchronizing a CUDA device at every mark)."""
+    SVT_PROVER_VERBOSE, and, when given a dict, adds each one's wall time
+    in ms to it (synchronizing a CUDA device at every mark)."""
 
     def __init__(self, out, device):
         self.out, self.device = out, device
@@ -54,7 +54,8 @@ class _Stages:
                 torch.cuda.synchronize(self.device)
             now = time.perf_counter()
             if self.name is not None:
-                self.out[self.name] = (now - self.t0) * 1e3
+                self.out[self.name] = (self.out.get(self.name, 0.0)
+                                       + (now - self.t0) * 1e3)
             self.name, self.t0 = name, now
         if name and os.environ.get("SVT_PROVER_VERBOSE"):
             print(f"[prove {time.strftime('%H:%M:%S')}] {name}", flush=True)
@@ -224,7 +225,8 @@ def prove_batch(data: CircuitData, inputs: Dict, batch: int, hasher: str = None,
                 check_witness: bool = True, device="cuda",
                 witness_rng: np.random.Generator = None,
                 salt_rng: np.random.Generator = None, permute=None,
-                inner_permute=None, stage_ms: dict = None) -> List[Proof]:
+                inner_permute=None, stage_ms: dict = None,
+                max_lanes: int = None) -> List[Proof]:
     """Prove `batch` witnesses of the circuit `data` on `device` (the
     device the circuit was built on; "cuda" by default, which raises
     without a card). `inputs` maps targets to [batch] values.
@@ -235,7 +237,28 @@ def prove_batch(data: CircuitData, inputs: Dict, batch: int, hasher: str = None,
     `permute` overrides that permutation and `inner_permute` the
     public-input hash's (default: Goldilocks Poseidon), e.g.
     `poseidon_gl.permute_plain` to run the plain version on the card.
-    `stage_ms`, if given, receives each stage's wall time in ms."""
+    `stage_ms`, if given, receives each stage's wall time in ms, summed
+    over the chunks.
+
+    `max_lanes` proves a wider batch as sequential sub-batches of at most
+    that many lanes, the inputs sliced on their last axis, as the JAX
+    package does (None reads SVT_PROVE_CHUNK; 0 proves in one batch): each
+    chunk's working set is its own, so the peak stays that of one chunk.
+    Given generators are drawn from by each chunk in turn; without them
+    each chunk draws a fresh witness generator, then a fresh salt one."""
+    if max_lanes is None:
+        max_lanes = int(os.environ.get("SVT_PROVE_CHUNK", "0"))
+    if max_lanes and batch > max_lanes:
+        out: List[Proof] = []
+        for s in range(0, batch, max_lanes):
+            e = min(batch, s + max_lanes)
+            sub = {t: v[..., s:e] if np.ndim(v) else v for t, v in inputs.items()}
+            out.extend(prove_batch(
+                data, sub, e - s, hasher=hasher, check_witness=check_witness,
+                device=device, witness_rng=witness_rng, salt_rng=salt_rng,
+                permute=permute, inner_permute=inner_permute, stage_ms=stage_ms,
+                max_lanes=0))
+        return out
     device = require_device(device)
     if device != data.device:
         raise ValueError(f"the circuit was built on {data.device}; prove on it, "

@@ -217,6 +217,7 @@ def test_package_imports_without_jax():
         "import stark_verifier_tpu_torch\n"
         "from stark_verifier_tpu_torch import convert\n"
         "from stark_verifier_tpu_torch.models import flagship\n"
+        "from stark_verifier_tpu_torch.models.flagship import CompiledVerifier, compiled_verifier\n"
         "from stark_verifier_tpu_torch.core import verifier, verifier_batched, challenger, merkle, gates\n"
         "from stark_verifier_tpu_torch.ops import poseidon_kernel, probes, cuda_build, hashers\n"
         "from stark_verifier_tpu_torch.ops import ntt, ntt_np, poseidon_spec\n"
