@@ -32,7 +32,8 @@ needs one CUDA card (built for Hopper, sm_90a), `nvcc`, and no network. It
      that the selected kernel's launch count equals the number of
      permutation calls the path makes (136 of 1,024 lanes, 57 of 28,672
      and 8 of 114,688, by a wrapper that records each call's lane count)
-     and the other kernels' is 0, that
+     and the other kernels' is 0, that every division launched the
+     inverse kernel (7 ext2_inv launches a batch), that
      accept bits and challenges are equal across the variants, and that
      they equal the same path run with the plain permutation on the card
      and on the CPU;
@@ -54,7 +55,8 @@ needs one CUDA card (built for Hopper, sm_90a), `nvcc`, and no network. It
      CUDA graph captured once and replayed) on both batches, zk20 (1024,
      mode "batched") and wrapped (256): one eager batch first under
      torch.cuda.set_sync_debug_mode("error") (no host sync on the path),
-     then the capture, which counts the eager batch's launches exactly,
+     then the capture, which counts the eager batch's launches exactly
+     (the inverse kernel's among them),
      its capture and instantiate seconds, the graph's node count and peak
      device bytes; the clean and the corrupted batch replayed through one
      graph with accept bits equal to the eager path's (the corrupted lanes,
@@ -87,7 +89,9 @@ needs one CUDA card (built for Hopper, sm_90a), `nvcc`, and no network. It
      AccessSet.verify_signals_np on the card accepting a signal and
      rejecting one with a changed topic; the 64 signals proved again with
      max_lanes=32 equal, proof by proof, two proves of 32 from the same
-     generators; 2 signals proved with the kernel,
+     generators (the quotient's PoseidonGate constraints in one
+     poseidon_gate_eval launch, the inverses in gl_inv and ext2_inv
+     launches); 2 signals proved with the kernel,
      with the plain permutation on the card and on the CPU (a spawned
      process beside the card's work) give equal proofs,
      whose grind witnesses are the lowest a CPU scan finds; the three
@@ -97,12 +101,16 @@ needs one CUDA card (built for Hopper, sm_90a), `nvcc`, and no network. It
      the two witness kernels (poseidon_gate_fill, ext2_reduce_chain)
      against their plain versions at 1 to 1,025 lanes and 1 to 100 chain
      steps, across the chain's chunks of 32 (edge words, non-canonical swap
-     bits, base and extension coefficients) and timed at the lane counts the
-     paths launch them at, each beside its bound and the launch floor; the
+     bits, base and extension coefficients), and the other four kernels of
+     witness.cu (ext2_arith under 25 constant pairs, gl_inv, ext2_inv on
+     every pair of edge words, poseidon_gate_eval on the quotient's planes
+     and on honest wires), all timed at the lane counts the paths launch
+     them at, each beside its bound and the launch floor; the
      bn254 wrapper of the zk20 circuit built on the card, its CommonData and verifying key equal
      to sem_wrapped16.npz's, the fixture's first 16 zk20 proofs wrapped in
      one prove_batch (stage ms, proofs a second, peak bytes, launches by
-     lane count of the bridge, Poseidon and the two witness kernels), every
+     lane count of the bridge, Poseidon and witness.cu's kernels: one
+     ext2_arith a generator, one poseidon_gate_eval), every
      wrapped proof equal to the fixture's array by array, all accepted by
      the batched verifier on the card and a corrupted lane rejected, a child
      with a flipped opening refused with WitnessConflict;
@@ -277,6 +285,33 @@ FILL_BYTES_PER_LANE = (12 + 1 + 135) * 8
 # one Horner step of ext2_reduce_chain, one lane: 5 field multiplies (the
 # schoolbook product's four and the twist's x 7), 4 adds, 2 canonicalisations
 CHAIN_INT32_INSTR_PER_STEP = 5 * 20 + 4 * 9 + 2 * 3
+# ext2_arith, one lane: the schoolbook product (4 multiplies, the twist's
+# x 7 as one fold of 5, 2 adds), then c0 p + c1 z in each component (2
+# multiplies, an add, a canonicalisation); 6 words read, 2 written
+ARITH_INT32_INSTR_PER_LANE = 4 * 20 + 5 + 2 * 9 + 2 * (2 * 20 + 9 + 3)
+ARITH_BYTES_PER_LANE = (6 + 2) * 8
+# gl_inv, one lane: the addition chain's 64 squarings and 10 multiplies, a
+# canonicalisation; one word read, one written
+INV_INT32_INSTR_PER_LANE = 74 * 20 + 3
+INV_BYTES_PER_LANE = 2 * 8
+# ext2_inv, one lane: the inverse of the norm, 4 multiplies (a0^2, a1^2,
+# a0 n, a1 n), the x 7 fold, the norm's subtraction of canonical words (9),
+# two canonicalisations and a negation; two words read, two written
+EXT2_INV_INT32_INSTR_PER_LANE = INV_INT32_INSTR_PER_LANE + 4 * 20 + 5 + 9 + 3 * 3
+EXT2_INV_BYTES_PER_LANE = 4 * 8
+# poseidon_gate_eval, one lane, at the Poseidon count's unit costs: 118
+# s-boxes of 4 multiplies (round 0's 12 on the state, rounds 1..3's 36 and
+# the second half's 48 on their wires, 22 partial), 8 dense MDS layers, the
+# 11 x 11 initial matrix (121 multiplies and adds), 22 sparse rounds of 22
+# multiplies and adds and s0 * 25 (5), 130 constant adds (96 in the full
+# rounds, 12 forwarded, 22 partial), 123 constraints each a subtraction of
+# two canonicalised words (9), the swap's 5 multiplies and the swapped
+# inputs' 8 adds and subtractions. It reads the gate's 135 wires and
+# writes 123 constraints a lane: (135 + 123) x 8 bytes.
+EVAL_INT32_INSTR_PER_LANE = (
+    118 * 4 * 20 + 8 * 410 + 121 * (20 + 9) + 22 * (22 * (20 + 9) + 5) + 130 * 9
+    + 123 * 9 + 5 * 20 + 8 * 9)
+EVAL_BYTES_PER_LANE = (135 + 123) * 8
 
 KERNEL_FILES = {
     "poseidon_permute": ("stark_verifier_tpu_torch/ops/csrc/poseidon_gl.cu",
@@ -299,8 +334,20 @@ KERNEL_FILES = {
                            "native/svt_poseidon.c:434"),
     "ext2_reduce_chain": ("stark_verifier_tpu_torch/ops/csrc/witness.cu",
                           "native/svt_poseidon.c:474"),
+    # the rest of the host C plane on the provers' path, and the numpy
+    # field's inverse (the Fermat power on the svt_gl_mul plane), with its
+    # extension form
+    "ext2_arith": ("stark_verifier_tpu_torch/ops/csrc/witness.cu",
+                   "native/svt_poseidon.c:457"),
+    "gl_inv": ("stark_verifier_tpu_torch/ops/csrc/witness.cu",
+               "stark_verifier_tpu/ops/gl64_np.py:189"),
+    "ext2_inv": ("stark_verifier_tpu_torch/ops/csrc/witness.cu",
+                 "stark_verifier_tpu/ops/ext2.py:87"),
+    "poseidon_gate_eval": ("stark_verifier_tpu_torch/ops/csrc/witness.cu",
+                           "native/svt_poseidon.c:680"),
 }
-ADDITIONS = {"bridge_permute12", "poseidon_gate_fill", "ext2_reduce_chain"}
+ADDITIONS = {"bridge_permute12", "poseidon_gate_fill", "ext2_reduce_chain", "ext2_arith",
+             "gl_inv", "ext2_inv", "poseidon_gate_eval"}
 PERMUTES = {m: functools.partial(pg.permute, mxu=m) for m in (0, 1, 2)}
 
 EDGES = np.array(
@@ -432,6 +479,13 @@ def kernel_row(name, ms, plain_ms, t_bytes, t_ops, library_ms=None,
 PATH_LANES = [1, 28, 112, WRAPPED_BATCH, BATCH, 28 * BATCH, 4 * 28 * BATCH]
 # launches by lane count in one zk20 batch of 1024 (phase_main_path checks it)
 ZK20_LAUNCHES_BY_LANES = {BATCH: 136, 28 * BATCH: 57, 4 * 28 * BATCH: 8}
+# the inverse kernel's launches in one batch of the batched verifier: every
+# ext2.div is one ext2_inv (one at [B], the others at [B, 28]); no gl_inv
+ZK20_INVERSE_LAUNCHES = {"ext2_inv": 7}
+WRAPPED_INVERSE_LAUNCHES = {"ext2_inv": 11}
+# witness.cu's launches by the path that made them (main_path, prove), for
+# the kernels' rows that phase_recursion writes
+PATH_LAUNCHES: dict = {}
 
 
 def poseidon_bound_ms(lanes):
@@ -757,6 +811,11 @@ def phase_main_path(device, rows):
         torch.cuda.synchronize()
         ms_once[name] = (time.perf_counter() - t0) * 1e3
         counts = dict(pk.LAUNCHES)
+        inverses = {k: c for k, c in WK.LAUNCHES.items() if c}
+        check(inverses == ZK20_INVERSE_LAUNCHES,
+              f"mxu={mxu}: witness.cu launches {inverses} in a batch, expected "
+              f"{ZK20_INVERSE_LAUNCHES}")
+        PATH_LAUNCHES["zk20_batch"] = inverses
         check(ok.dtype == torch.bool and tuple(ok.shape) == (BATCH,),
               f"accept bits have shape {tuple(ok.shape)} and type {ok.dtype}")
         check(bool(ok.all()),
@@ -821,8 +880,9 @@ def phase_main_path(device, rows):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     check(bool(ok.all()), "a repetition rejected an honest proof")
-    check(pk.LAUNCHES[pk.KERNELS[default]] == reps * n_calls,
-          f"the default entry point launched {pk.LAUNCHES} in {reps} batches")
+    check(pk.LAUNCHES[pk.KERNELS[default]] == reps * n_calls
+          and WK.LAUNCHES["ext2_inv"] == reps * ZK20_INVERSE_LAUNCHES["ext2_inv"],
+          f"the default entry point launched {pk.LAUNCHES}, {WK.LAUNCHES} in {reps} batches")
     ms = float(np.median(times)) * 1e3
     for name in pk.KERNELS:
         rows.setdefault(name, {})["launches"] = launches[name]
@@ -833,6 +893,7 @@ def phase_main_path(device, rows):
           "fold_layers": len(common.fri_params.reduction_arity_bits),
           "accepted": int(ok.sum()), "rejected_lanes": lanes,
           "launches_by_variant": launches, "permutation_calls": n_calls,
+          "inverse_launches": ZK20_INVERSE_LAUNCHES,
           "launches_by_lanes": by_lanes[pk.KERNELS[default]],
           "equal_across_variants": True,
           "equal_to_plain_on_card": True, "equal_to_cpu": True,
@@ -1149,7 +1210,7 @@ def phase_compiled(device, rows):
     comp, out["zk20"] = compiled_cell(common, vk, pa,
                                       to_device(corrupt(batched, lanes)), expect)
     check(out["zk20"]["launches_at_capture"]
-          == {default: sum(ZK20_LAUNCHES_BY_LANES.values())},
+          == {default: sum(ZK20_LAUNCHES_BY_LANES.values()), **ZK20_INVERSE_LAUNCHES},
           f"zk20: launches at capture {out['zk20']['launches_at_capture']}")
     # a dict of another shape, or on another device, is refused
     for name, other in (("half the proofs", {k: v[: BATCH // 2] for k, v in pa.items()}),
@@ -1187,7 +1248,8 @@ def phase_compiled(device, rows):
         wcommon, wvk, wto_device(wbatched),
         wto_device(corrupt_wrapped(wbatched, wlanes)), wexpect)
     del wcomp
-    check(out["wrapped"]["launches_at_capture"] == {"bridge_permute12": 230, default: 2},
+    check(out["wrapped"]["launches_at_capture"]
+          == {"bridge_permute12": 230, default: 2, **WRAPPED_INVERSE_LAUNCHES},
           f"wrapped: launches at capture {out['wrapped']['launches_at_capture']}")
     emit({"phase": "compiled", **out})
 
@@ -1556,6 +1618,13 @@ def phase_prove(device):
           and sum(pk.LAUNCHES.values()) == len(lanes)
           and not any(bk.LAUNCHES.values()) and not any(probes.LAUNCHES.values()),
           f"prove: {pk.LAUNCHES}, {bk.LAUNCHES} launches for {len(lanes)} calls")
+    # the quotient's PoseidonGate constraints in one launch; the inverses of
+    # the permutation argument, of L_0 and Z_H, and of the openings' points
+    prove_wk = dict(WK.LAUNCHES)
+    PATH_LAUNCHES["prove"] = prove_wk
+    check(prove_wk["poseidon_gate_eval"] == 1 and prove_wk["gl_inv"] > 0
+          and prove_wk["ext2_inv"] > 0,
+          f"prove: witness.cu launches {prove_wk}")
     launches = {k: lanes.count(k) for k in sorted(set(lanes))}
     torch.cuda.reset_peak_memory_stats()
     stages = {}
@@ -1640,6 +1709,7 @@ def phase_prove(device):
           "zero_knowledge": common.fri_params.hiding, **out,
           "prove_s": prove_s, "proofs_per_s": PROVE_BATCH / prove_s,
           "stage_ms": stages, "launches": len(lanes), "launches_by_lanes": launches,
+          "witness_cu_launches": prove_wk,
           "peak_device_bytes": peak, "accepted": int(ok.sum()), "rejected_lane": 5,
           "equal_kernel_plain_cpu": True, "vk_equal_to_cpu": True,
           "grind_witnesses": scanned, "kernels_by_lanes": kernel_times})
@@ -1763,6 +1833,115 @@ def witness_kernels(device):
     return fill, chain
 
 
+# lane counts at which the paths launch the three later kernels of
+# witness.cu: ext2_arith on the recursive witnesses (WITNESS_PATH_LANES);
+# gl_inv there too, and on a prove's [10 chunks, B, n] denominators (64 x
+# 2^9 at the prove, 16 x 2^13 at the wrap) and the LDE's 2^16 points;
+# ext2_inv on the witnesses and the verifier's [B] and [B, 28] (zk20 1024,
+# wrapped 256); poseidon_gate_eval on a quotient's [B, lde_n]: a prove of 64
+# (2^12 points), a level's pair (2^17), a wrap of 16 (2^16)
+ARITH_LANES = WITNESS_PATH_LANES + [1025]
+GL_INV_LANES = WITNESS_PATH_LANES + [1 << 16, 10 * PROVE_BATCH << 9, 10 * WRAP_BATCH << 13]
+EXT2_INV_LANES = WITNESS_PATH_LANES + [BATCH, 28 * WRAPPED_BATCH, 28 * BATCH]
+EVAL_SHAPES = [(PROVE_BATCH, 1 << 12), (2, 1 << 17), (WRAP_BATCH, 1 << 16)]
+
+
+def lane_bound_ms(lanes, bytes_per_lane, instr_per_lane):
+    return (lanes * bytes_per_lane / PEAK_BYTES_PER_S * 1e3,
+            lanes * instr_per_lane / PEAK_INT32_INSTR_PER_S * 1e3)
+
+
+def timed_kernel(fn, plain_ms, bounds, reps=50):
+    """Device time (CUDA-graph replay) and eager time of `fn`, beside its
+    plain version's time and its bounds."""
+    t_bytes, t_ops = bounds
+    return {"ms": graph_ms(fn, reps), "call_ms": cuda_ms(fn, min(reps, 20)),
+            "plain_ms": plain_ms, "bound_bytes_ms": t_bytes, "bound_operations_ms": t_ops,
+            **least_time(t_bytes, t_ops)}
+
+
+def c_plane_kernels(device):
+    """ext2_arith, gl_inv, ext2_inv and poseidon_gate_eval against their
+    plain versions on the card, exactly (edge words in every operand,
+    non-canonical ones among them; the constant pairs 0, 1, p - 1, a small
+    and a large one; the eval on random wires and on wires the fill made,
+    whose constraints are all 0), then timed at the lane counts the paths
+    launch them at, each beside its bound and the launch floor."""
+    rng = np.random.default_rng(SEED + 16)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 16)
+    edges = gl64.from_u64(EDGES, device)
+    consts = [0, 1, gl64.P - 1, 7, 2**63 + 5]
+    arith, gl_inv, ext2_inv, evals = {}, {}, {}, {}
+
+    def words(shape):
+        """Full-range words made on the card, a quarter of them edge words."""
+        w = torch.randint(-2**63, 2**63 - 1, shape, dtype=torch.int64, device=device,
+                          generator=gen)
+        pick = torch.rand(shape, device=device, generator=gen) < 0.25
+        at = torch.randint(0, len(EDGES), shape, device=device, generator=gen)
+        return torch.where(pick, edges[at], w)
+
+    for lanes in ARITH_LANES:
+        x, y, z = words((2, lanes)), words((2, lanes)), words((2, lanes))
+        for c0 in consts:
+            for c1 in consts:
+                check(torch.equal(WK.ext2_arith(c0, c1, x, y, z),
+                                  WK.ext2_arith_plain(c0, c1, x, y, z)),
+                      f"ext2_arith != its plain version at {lanes} lanes, c = {c0}, {c1}")
+        c0, c1 = 2**63 + 5, gl64.P - 1
+        _, plain_ms = timed_plain(lambda: WK.ext2_arith_plain(c0, c1, x, y, z))
+        arith[lanes] = timed_kernel(lambda: WK.ext2_arith(c0, c1, x, y, z), plain_ms,
+                                    lane_bound_ms(lanes, ARITH_BYTES_PER_LANE,
+                                                  ARITH_INT32_INSTR_PER_LANE))
+    for lanes in GL_INV_LANES:
+        a = words((lanes,))
+        if lanes >= len(EDGES):
+            a[:len(EDGES)] = edges
+        want, plain_ms = timed_plain(lambda: WK.gl_inv_plain(a))
+        check(torch.equal(WK.gl_inv(a), want), f"gl_inv != its plain version at {lanes} lanes")
+        gl_inv[lanes] = timed_kernel(lambda: WK.gl_inv(a), plain_ms,
+                                     lane_bound_ms(lanes, INV_BYTES_PER_LANE,
+                                                   INV_INT32_INSTR_PER_LANE))
+    for lanes in EXT2_INV_LANES:
+        a = words((2, lanes))
+        if lanes >= len(EDGES) ** 2:     # every pair of edge words
+            a[0, :len(EDGES) ** 2] = gl64.from_u64(np.repeat(EDGES, len(EDGES)), device)
+            a[1, :len(EDGES) ** 2] = gl64.from_u64(np.tile(EDGES, len(EDGES)), device)
+        want, plain_ms = timed_plain(lambda: WK.ext2_inv_plain(a))
+        check(torch.equal(WK.ext2_inv(a), want),
+              f"ext2_inv != its plain version at {lanes} lanes")
+        ext2_inv[lanes] = timed_kernel(lambda: WK.ext2_inv(a), plain_ms,
+                                       lane_bound_ms(lanes, EXT2_INV_BYTES_PER_LANE,
+                                                     EXT2_INV_INT32_INSTR_PER_LANE))
+    ins = gl64.from_u64(edge_state(rng, 1025), device)
+    sw = gl64.from_u64(rng.integers(0, 2, 1025, dtype=np.uint64), device)
+    honest = WK.poseidon_gate_fill(ins, sw)
+    check(not bool(WK.poseidon_gate_eval(honest).any()),
+          "poseidon_gate_eval: the fill's wires break a constraint")
+    for shape in EVAL_SHAPES:
+        lanes = shape[0] * shape[1]
+        # the quotient's layout: the planes are slices of one wire tensor
+        wires = words((WK.FILL_WIRES + 1,) + shape)
+        planes = list(wires)[:WK.FILL_WIRES]
+        want, plain_ms = timed_plain(lambda: WK.poseidon_gate_eval_plain(planes))
+        check(torch.equal(WK.poseidon_gate_eval(planes), want),
+              f"poseidon_gate_eval != its plain version at {shape}")
+        del want
+        evals[f"{shape[0]}x{shape[1]}"] = timed_kernel(
+            lambda: WK.poseidon_gate_eval(planes), plain_ms,
+            lane_bound_ms(lanes, EVAL_BYTES_PER_LANE, EVAL_INT32_INSTR_PER_LANE), reps=5)
+        del wires, planes
+    return arith, gl_inv, ext2_inv, evals
+
+
+def ext_arith_generators(data):
+    """The circuit's ArithmeticExtension and MulExtension generators: one
+    ext2_arith launch each in a witness."""
+    return sum(1 for g in data.builder.generators if g.__qualname__.startswith(
+        ("CircuitBuilder.arithmetic_extension.", "CircuitBuilder.mul_extension.")))
+
+
 def gate_rows(data, *kinds):
     return sum(1 for g, _ in data.builder.gate_rows if isinstance(g, kinds))
 
@@ -1774,6 +1953,7 @@ def phase_recursion(device, rows):
     reference's strength; the digest aggregation and its attestation."""
     out = {}
     fill, chain = witness_kernels(device)
+    arith, gl_inv, ext2_inv, evals = c_plane_kernels(device)
 
     # ---- (a) the wrapper at full width, against the tracked fixture
     zk_proofs, common, vk = load_fixture()
@@ -1802,13 +1982,21 @@ def phase_recursion(device, rows):
     default = pk.KERNELS[pk._use_mxu()]
     fills = gate_rows(wd, G.PoseidonGate)
     chains = gate_rows(wd, G.ReducingGate, G.ReducingExtensionGate)
+    ariths = ext_arith_generators(wd)
+    inverses = counts["gl_inv"] + counts["ext2_inv"]
+    # one quotient, one PoseidonGate evaluation; the inverses of the witness's
+    # in-circuit divisions and of the prover's, however many there are
     check(counts["bridge_permute12"] == len(bridge_lanes)
           and counts[default] == len(poseidon_lanes)
           and counts["poseidon_gate_fill"] == fills
           and counts["ext2_reduce_chain"] == chains
-          and sum(counts.values()) == len(bridge_lanes) + len(poseidon_lanes) + fills + chains,
+          and counts["ext2_arith"] == ariths and counts["poseidon_gate_eval"] == 1
+          and counts["gl_inv"] > 0 and counts["ext2_inv"] > 0
+          and sum(counts.values()) == (len(bridge_lanes) + len(poseidon_lanes) + fills
+                                       + chains + ariths + 1 + inverses),
           f"wrap: launches {counts} for {len(bridge_lanes)} bridge and "
-          f"{len(poseidon_lanes)} Poseidon calls, {fills} fill and {chains} chain rows")
+          f"{len(poseidon_lanes)} Poseidon calls, {fills} fill and {chains} chain rows, "
+          f"{ariths} extension-arithmetic generators")
     for name in WK.KERNELS:
         rows[name] = {"launches": counts[name]}
     check(len(wrapped) == WRAP_BATCH, f"wrap: {len(wrapped)} proofs")
@@ -1847,7 +2035,10 @@ def phase_recursion(device, rows):
             "bridge_permute12": {n: bridge_lanes.count(n) for n in sorted(set(bridge_lanes))},
             default: {n: poseidon_lanes.count(n) for n in sorted(set(poseidon_lanes))},
             "poseidon_gate_fill": {WRAP_BATCH: fills},
-            "ext2_reduce_chain": {WRAP_BATCH: chains}},
+            "ext2_reduce_chain": {WRAP_BATCH: chains},
+            "ext2_arith": {WRAP_BATCH: ariths},
+            "poseidon_gate_eval": {WRAP_BATCH << 16: 1},
+            "gl_inv": counts["gl_inv"], "ext2_inv": counts["ext2_inv"]},
         "equal_to_fixture": True, "accepted_on_card": int(ok.sum()), "rejected_lane": 5}
     del batched, bad, ok, ok_bad
 
@@ -1909,13 +2100,19 @@ def phase_recursion(device, rows):
     agg_fills = sum(st["gate_rows"]["PoseidonGate"] for st in stats)
     agg_chains = sum(st["gate_rows"].get(g, 0) for st in stats
                      for g in ("ReducingGate", "ReducingExtensionGate"))
+    agg_ariths = sum(ext_arith_generators(level.data) for level in cache.values())
+    agg_others = sum(agg_counts[k] for k in ("gl_inv", "ext2_inv", "poseidon_gate_eval"))
     check(len(stats) == len(builds)
           and agg_counts["poseidon_gate_fill"] == agg_fills
           and agg_counts["ext2_reduce_chain"] == agg_chains
+          and agg_counts["ext2_arith"] == agg_ariths
           and agg_counts[default] == len(agg_lanes)
-          and sum(agg_counts.values()) == len(agg_lanes) + agg_fills + agg_chains,
+          and all(agg_counts[k] > 0 for k in ("gl_inv", "ext2_inv", "poseidon_gate_eval"))
+          and sum(agg_counts.values()) == (len(agg_lanes) + agg_fills + agg_chains
+                                           + agg_ariths + agg_others),
           f"aggregation: launches {agg_counts} for {len(agg_lanes)} Poseidon calls "
-          f"in the provers, {agg_fills} fill and {agg_chains} chain rows")
+          f"in the provers, {agg_fills} fill and {agg_chains} chain rows, {agg_ariths} "
+          f"extension-arithmetic generators")
     check([st["degree_bits"] for st in stats] == [14, 14],
           f"aggregation: levels of degree 2^{[st['degree_bits'] for st in stats]}")
     check(SREC.verify_aggregated(agg, aset.merkle_root),
@@ -1968,8 +2165,27 @@ def phase_recursion(device, rows):
         steps=k, by_lanes_and_steps=chain,
         launches_per_aggregation=agg_launches["ext2_reduce_chain"])
     rows["ext2_reduce_chain"]["launches"] = counts["ext2_reduce_chain"]
-    emit({"phase": "recursion", **out, "poseidon_gate_fill": rows["poseidon_gate_fill"],
-          "ext2_reduce_chain": rows["ext2_reduce_chain"]})
+    # the three later kernels: the wrap's lane counts (16 for the witness,
+    # 16 x 2^16 points for the quotient), its launches; the other paths'
+    # launches beside them
+    # (None where this run did not drive that path: --only)
+    others = {name: {"launches_per_aggregation": agg_launches[name],
+                     "launches_per_prove": PATH_LAUNCHES["prove"][name]
+                     if "prove" in PATH_LAUNCHES else None,
+                     "launches_per_zk20_batch": PATH_LAUNCHES["zk20_batch"].get(name, 0)
+                     if "zk20_batch" in PATH_LAUNCHES else None}
+              for name in ("ext2_arith", "gl_inv", "ext2_inv", "poseidon_gate_eval")}
+    for name, by_lanes, lanes in (("ext2_arith", arith, WRAP_BATCH),
+                                  ("gl_inv", gl_inv, WRAP_BATCH),
+                                  ("ext2_inv", ext2_inv, WRAP_BATCH),
+                                  ("poseidon_gate_eval", evals, f"{WRAP_BATCH}x{1 << 16}")):
+        at = by_lanes[lanes]
+        rows[name] = kernel_row(name, at["ms"], at["plain_ms"], at["bound_bytes_ms"],
+                                at["bound_operations_ms"], lanes=lanes, by_lanes=by_lanes,
+                                **others[name])
+        rows[name]["launches"] = counts[name]
+    emit({"phase": "recursion", **out,
+          **{name: rows[name] for name in WK.KERNELS}})
 
 
 PHASES = ("poseidon_kernels", "probes", "main_path", "per_proof", "bridge_kernel",

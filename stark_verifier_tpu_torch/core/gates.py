@@ -498,7 +498,8 @@ class PoseidonMdsGate(Gate):
 class PoseidonGate(Gate):
     """Full width-12 Poseidon permutation, in plonky2's fast-partial-round
     wire layout (plonky2 gates/poseidon.rs). 123 constraints. Evaluated in
-    the lane-stacked form over either ring."""
+    the lane-stacked form over either ring; over the base ring on a CUDA
+    device by the kernel `ops/witness_kernel.poseidon_gate_eval`."""
 
     degree = 7
     num_constants = 0
@@ -540,7 +541,12 @@ class PoseidonGate(Gate):
         if isinstance(R, ExtRing):
             return _poseidon_eval_vectorized(self, R, W)
         if isinstance(R, BaseRing):
-            return _poseidon_eval_base(self, R, W)
+            if R.F.device.type == "cpu":
+                return _poseidon_eval_base(self, R, W)
+            # on the card: the eval kernel, whose plain version is the above
+            from ..ops import witness_kernel
+
+            return list(witness_kernel.poseidon_gate_eval(W[:self.num_wires_used()]))
         return _poseidon_eval_generic(self, R, W)
 
 

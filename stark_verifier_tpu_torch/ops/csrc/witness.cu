@@ -1,6 +1,7 @@
-// Witness generation of the recursive circuits for NVIDIA Hopper (sm_90a):
-// the two kernels that take the place of the host C planes the JAX package
-// calls for its recursion prover (native/svt_poseidon.c).
+// Witness generation and the constraint evaluation of the provers for NVIDIA
+// Hopper (sm_90a): the kernels that take the place of the host C planes the
+// JAX package calls for its provers (native/svt_poseidon.c, and the numpy
+// field's inverse that runs on its svt_gl_mul plane).
 //
 //   poseidon_gate_fill: all 135 wires of a PoseidonGate row for L lanes,
 //     int64[12, L] inputs and int64[L] swap bits -> int64[135, L], canonical,
@@ -16,11 +17,38 @@
 //     coefficients, int64[2, L] alpha and old accumulator, int64[k, 2, L]
 //     coefficients (base or extension) -> int64[k, 2, L], canonical.
 //     Counterpart of svt_ext2_reduce_chain (native/svt_poseidon.c:474).
+//   ext2_arith: c0 x y + c1 z in GF(p^2) for two constants, int64[2, L]
+//     operands -> int64[2, L], canonical: the ArithmeticExtension and
+//     MulExtension (c1 = 0) generators' body. Counterpart of
+//     svt_ext2_arith_batch (native/svt_poseidon.c:457).
+//   gl_inv, ext2_inv: the field inverse, a^(p - 2) by an addition chain (64
+//     squarings, 10 multiplies), int64[L] -> int64[L]; in GF(p^2) the
+//     conjugate over the norm a0^2 - 7 a1^2, int64[2, L] -> int64[2, L];
+//     canonical, and 0 for 0 (or p). Counterpart of gl64_np.inv
+//     (stark_verifier_tpu/ops/gl64_np.py:189), the Fermat power the JAX
+//     package's numpy provers run on svt_gl_mul, and of its ext2.inv.
+//   poseidon_gate_eval: the 123 PoseidonGate constraints at L points from
+//     the gate's 135 wire planes (plane k at wires + k * stride, its L
+//     words consecutive) -> int64[123, L], canonical, in the order of
+//     core/gates._poseidon_eval_base: the swap's and the deltas' five,
+//     full rounds 1..3's s-box inputs, the 22 partial ones, the second
+//     half's 48, the 12 outputs. Counterpart of svt_poseidon_eval_batch_p
+//     (native/svt_poseidon.c:680), the prover's quotient on the LDE coset.
 //
-// What bounds them on this card. The recursive provers launch each once a
-// gate row at 1, 2, 16 or 64 lanes (a signal's wrap and the top level, a
-// level of two pairs, a wrap of 16, a batch of signals), so a launch is one
-// lane's latency, never the card's rates: the bounds by bytes and by
+// The three later kernels are one thread a lane, each lane's work in
+// registers from its loads to its stores: a first design that is right.
+// ext2_arith and the inverses run at 1 to 64 lanes on the recursive
+// provers' witness and at a batch's lanes on the verifier, where a launch
+// binds; poseidon_gate_eval runs at 2^18 to 2^20 lanes, where the card's
+// rates bind: some 33,000 32-bit integer instructions a lane against the
+// 258 words it reads and writes, so operations before bytes. The eval reads the
+// fill's tables (round constants, forwarded constants, the sparse
+// matrices) from FILL_TABLES, which the wrapper uploads once a device.
+//
+// What bounds the fill and the chain on this card. The recursive provers
+// launch each once a gate row at 1, 2, 16 or 64 lanes (a signal's wrap and
+// the top level, a level of two pairs, a wrap of 16, a batch of signals), so
+// a launch is one lane's latency, never the card's rates: the bounds by bytes and by
 // operations are below 0.002 ms, the launch itself some microseconds. One
 // thread a lane made each launch one thread's serial chain: the fill's
 // ~1,100 dependent multiplies and its table reads from global memory (0.067
@@ -315,6 +343,199 @@ ext2_reduce_chain_kernel(const u64* __restrict__ alpha, const u64* __restrict__ 
     }
 }
 
+// ------------------------------------------------------ one thread a lane
+#define LANE_THREADS 128           // ext2_arith, the inverses, the eval
+#define EVAL_CONSTRAINTS 123
+static_assert(1 + 4 + 3 * WIDTH + N_PARTIAL + HALF_FULL * WIDTH + WIDTH == EVAL_CONSTRAINTS,
+              "PoseidonGate's 123 constraints");
+
+// a - b mod p for any representatives: canonical
+__device__ __forceinline__ u64 sub_any(u64 a, u64 b) {
+    return sub_canonical(canonical(a), canonical(b));
+}
+
+// -a mod p for a canonical a: canonical
+__device__ __forceinline__ u64 neg_canonical(u64 a) {
+    return a ? GL_P - a : 0ull;
+}
+
+__device__ __forceinline__ long long lane_index() {
+    return (long long)blockIdx.x * LANE_THREADS + threadIdx.x;
+}
+
+// ext2_arith: out = c0 (x y) + c1 z, x y by the schoolbook product of
+// ext2_mul (X^2 = 7)
+__global__ void __launch_bounds__(LANE_THREADS)
+ext2_arith_kernel(u64 c0, u64 c1, const u64* __restrict__ x, const u64* __restrict__ y,
+                  const u64* __restrict__ z, u64* __restrict__ out, long long L) {
+    const long long i = lane_index();
+    if (i >= L) return;
+    const ext2 p = ext2_mul({x[i], x[L + i]}, {y[i], y[L + i]});
+    out[i] = canonical(add_gl(mul_gl(c0, p.a), mul_gl(c1, z[i])));
+    out[L + i] = canonical(add_gl(mul_gl(c0, p.b), mul_gl(c1, z[L + i])));
+}
+
+// x^(2^k): k squarings
+template <int K>
+__device__ __forceinline__ u64 square_n(u64 x) {
+#pragma unroll
+    for (int j = 0; j < K; ++j) x = mul_gl(x, x);
+    return x;
+}
+
+// a^(p - 2), canonical. With t_k = a^(2^k - 1), t_(j + k) = t_j^(2^k) t_k,
+// and p - 2 = (2^31 - 1) 2^33 + (2^32 - 1): t_1, t_2, t_4, t_8, t_16, then
+// t_24, t_28, t_30, t_31, t_32, and t_31^(2^33) t_32. 64 squarings and 10
+// multiplies where square-and-multiply takes 63 and 62. a = 0 gives 0.
+__device__ __forceinline__ u64 inv_gl(u64 a) {
+    const u64 t1 = a;
+    const u64 t2 = mul_gl(square_n<1>(t1), t1);
+    const u64 t4 = mul_gl(square_n<2>(t2), t2);
+    const u64 t8 = mul_gl(square_n<4>(t4), t4);
+    const u64 t16 = mul_gl(square_n<8>(t8), t8);
+    const u64 t24 = mul_gl(square_n<8>(t16), t8);
+    const u64 t28 = mul_gl(square_n<4>(t24), t4);
+    const u64 t30 = mul_gl(square_n<2>(t28), t2);
+    const u64 t31 = mul_gl(square_n<1>(t30), t1);
+    const u64 t32 = mul_gl(square_n<1>(t31), t1);
+    return canonical(mul_gl(square_n<33>(t31), t32));
+}
+
+__global__ void __launch_bounds__(LANE_THREADS)
+gl_inv_kernel(const u64* __restrict__ a, u64* __restrict__ out, long long L) {
+    const long long i = lane_index();
+    if (i >= L) return;
+    out[i] = inv_gl(a[i]);
+}
+
+// (a0 + a1 X)^-1 = (a0 - a1 X) / (a0^2 - 7 a1^2); the norm is 0 only for 0
+__global__ void __launch_bounds__(LANE_THREADS)
+ext2_inv_kernel(const u64* __restrict__ a, u64* __restrict__ out, long long L) {
+    const long long i = lane_index();
+    if (i >= L) return;
+    const u64 a0 = a[i], a1 = a[L + i];
+    const u64 n = inv_gl(sub_any(mul_gl(a0, a0), mul_small(mul_gl(a1, a1), 7)));
+    out[i] = canonical(mul_gl(a0, n));
+    out[L + i] = neg_canonical(canonical(mul_gl(a1, n)));
+}
+
+// ------------------------------------------------------ poseidon_gate_eval
+// The dense MDS layer on one thread's twelve words: row q's coefficient of
+// word j is CIRC[(j - q) mod 12], with 8 more on word 0 of row 0, summed on
+// the words' 32-bit halves in split_row's two chains and folded.
+__device__ __forceinline__ void mds_thread(u64 (&s)[WIDTH]) {
+    const u32 circ[WIDTH] = MDS_CIRC;
+    u32 lo[WIDTH], hi[WIDTH];
+#pragma unroll
+    for (int j = 0; j < WIDTH; ++j) {
+        lo[j] = (u32)s[j];
+        hi[j] = (u32)(s[j] >> 32);
+    }
+#pragma unroll
+    for (int q = 0; q < WIDTH; ++q) {
+        u32 m[WIDTH];
+#pragma unroll
+        for (int j = 0; j < WIDTH; ++j) m[j] = circ[(j - q + WIDTH) % WIDTH];
+        s[q] = split_row(m, q == 0 ? DIAG0 : 0u, lo, hi);
+    }
+}
+
+// The constraints of one lane, each stored as soon as it exists: a
+// constraint is the state word the permutation reaches minus the wire that
+// records it, and the recorded wire, not the state word, goes on.
+__global__ void __launch_bounds__(LANE_THREADS)
+poseidon_gate_eval_kernel(const u64* __restrict__ w, long long stride,
+                          u64* __restrict__ out, long long L) {
+    const long long i = lane_index();
+    if (i >= L) return;
+    const u64* __restrict__ t = FILL_TABLES;
+    const u64* __restrict__ lane = w + i;
+    u64* __restrict__ o = out + i;
+#define WIRE(k) lane[(long long)(k) * stride]
+#define EMIT(c, v) o[(long long)(c) * L] = (v)
+
+    // the swap bit and the deltas; the swapped inputs
+    const u64 swap = WIRE(WIRE_SWAP);
+    EMIT(0, sub_any(mul_gl(swap, swap), swap));
+    u64 s[WIDTH];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+        const u64 x_lo = WIRE(k), x_hi = WIRE(k + 4), d = WIRE(START_DELTA + k);
+        EMIT(1 + k, sub_any(mul_gl(swap, sub_any(x_hi, x_lo)), d));
+        s[k] = add_gl(x_lo, d);
+        s[k + 4] = sub_any(x_hi, d);
+    }
+#pragma unroll
+    for (int k = 8; k < WIDTH; ++k) s[k] = WIRE(k);
+
+    // the first half: round 0 from the state, rounds 1..3 from their wires
+#pragma unroll
+    for (int q = 0; q < WIDTH; ++q) s[q] = sbox7(add_const(s[q], t[q]));
+    mds_thread(s);
+    int c = 5;
+#pragma unroll 1
+    for (int r = 1; r < HALF_FULL; ++r) {
+#pragma unroll
+        for (int q = 0; q < WIDTH; ++q) {
+            const u64 sb = WIRE(START_FULL_0 + WIDTH * (r - 1) + q);
+            EMIT(c + q, sub_any(add_const(s[q], t[r * WIDTH + q]), sb));
+            s[q] = sbox7(sb);
+        }
+        c += WIDTH;
+        mds_thread(s);
+    }
+
+    // the forwarded constants, the initial matrix on words 1..11 (word c + 1
+    // takes sum_r M[r][c] s[1 + r]), then the 22 sparse rounds
+#pragma unroll
+    for (int q = 0; q < WIDTH; ++q) s[q] = add_const(s[q], t[FIRST_AT + q]);
+    {
+        u64 u[WIDTH - 1];
+#pragma unroll
+        for (int k = 0; k < WIDTH - 1; ++k) {
+            u64 sum = 0;
+#pragma unroll
+            for (int r = 0; r < WIDTH - 1; ++r)
+                sum = add_gl(sum, mul_gl(t[INIT_AT + r * (WIDTH - 1) + k], s[1 + r]));
+            u[k] = sum;
+        }
+#pragma unroll
+        for (int k = 0; k < WIDTH - 1; ++k) s[1 + k] = u[k];
+    }
+#pragma unroll 1
+    for (int r = 0; r < N_PARTIAL; ++r) {
+        const u64 sb = WIRE(START_PARTIAL + r);
+        EMIT(c + r, sub_any(s[0], sb));
+        // the last round's constant is 0: adding it is plonky2's skip
+        const u64 s0 = add_const(sbox7(sb), t[PRC_AT + r]);
+        u64 d = mul_small(s0, MDS0TO0);
+#pragma unroll
+        for (int j = 0; j < WIDTH - 1; ++j) {
+            d = add_gl(d, mul_gl(t[WHAT_AT + r * (WIDTH - 1) + j], s[1 + j]));
+            s[1 + j] = add_gl(mul_gl(t[VS_AT + r * (WIDTH - 1) + j], s0), s[1 + j]);
+        }
+        s[0] = d;
+    }
+    c += N_PARTIAL;
+
+    // the second half, every round from its wires; then the outputs
+#pragma unroll 1
+    for (int r = 0; r < HALF_FULL; ++r) {
+#pragma unroll
+        for (int q = 0; q < WIDTH; ++q) {
+            const u64 sb = WIRE(START_FULL_1 + WIDTH * r + q);
+            EMIT(c + q, sub_any(add_const(s[q], t[(HALF_FULL + N_PARTIAL + r) * WIDTH + q]), sb));
+            s[q] = sbox7(sb);
+        }
+        c += WIDTH;
+        mds_thread(s);
+    }
+#pragma unroll
+    for (int q = 0; q < WIDTH; ++q) EMIT(c + q, sub_any(s[q], WIRE(START_OUTPUT + q)));
+#undef WIRE
+#undef EMIT
+}
+
 // an empty kernel: the least time a launch of this library takes
 __global__ void witness_empty_kernel() {}
 
@@ -346,6 +567,46 @@ int ext2_reduce_chain(const void* alpha, const void* acc, const void* coeffs, vo
     if (L <= 0 || k <= 0) return 0;
     ext2_reduce_chain_kernel<<<(unsigned)L, CHAIN_THREADS, 0, (cudaStream_t)stream>>>(
         (const u64*)alpha, (const u64*)acc, (const u64*)coeffs, (u64*)out, k, L);
+    return (int)cudaGetLastError();
+}
+
+static unsigned lane_blocks(long long L) {
+    return (unsigned)((L + LANE_THREADS - 1) / LANE_THREADS);
+}
+
+// x, y, z, out: u64[2, L], device pointers, out distinct from the others;
+// c0 and c1 canonical.
+int ext2_arith(unsigned long long c0, unsigned long long c1, const void* x, const void* y,
+               const void* z, void* out, long long L, void* stream) {
+    if (L <= 0) return 0;
+    ext2_arith_kernel<<<lane_blocks(L), LANE_THREADS, 0, (cudaStream_t)stream>>>(
+        c0, c1, (const u64*)x, (const u64*)y, (const u64*)z, (u64*)out, L);
+    return (int)cudaGetLastError();
+}
+
+// a, out: u64[L], device pointers, distinct.
+int gl_inv(const void* a, void* out, long long L, void* stream) {
+    if (L <= 0) return 0;
+    gl_inv_kernel<<<lane_blocks(L), LANE_THREADS, 0, (cudaStream_t)stream>>>(
+        (const u64*)a, (u64*)out, L);
+    return (int)cudaGetLastError();
+}
+
+// a, out: u64[2, L], device pointers, distinct.
+int ext2_inv(const void* a, void* out, long long L, void* stream) {
+    if (L <= 0) return 0;
+    ext2_inv_kernel<<<lane_blocks(L), LANE_THREADS, 0, (cudaStream_t)stream>>>(
+        (const u64*)a, (u64*)out, L);
+    return (int)cudaGetLastError();
+}
+
+// wires: 135 planes of L words, plane k at wires + k * stride (words);
+// out: u64[123, L]; device pointers, out distinct from the planes.
+int poseidon_gate_eval(const void* wires, long long stride, void* out, long long L,
+                       void* stream) {
+    if (L <= 0) return 0;
+    poseidon_gate_eval_kernel<<<lane_blocks(L), LANE_THREADS, 0, (cudaStream_t)stream>>>(
+        (const u64*)wires, stride, (u64*)out, L);
     return (int)cudaGetLastError();
 }
 

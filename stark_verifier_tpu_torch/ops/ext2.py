@@ -7,6 +7,7 @@ value = c0 + c1*x.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 W = 7  # x^2 = 7
 
@@ -82,11 +83,25 @@ def scalar_mul(F, a, s):
 
 
 def inv(F, a):
+    """a^-1, and 0 for 0. On a CUDA tensor one launch of the inverse kernel
+    (ops/witness_kernel.ext2_inv, canonical output); on a CPU tensor
+    `inv_plain`."""
+    if torch.is_tensor(a[0]) and a[0].device.type != "cpu":
+        from .witness_kernel import ext2_inv
+
+        out = ext2_inv(torch.stack(torch.broadcast_tensors(a[0], a[1])))
+        return (out[0], out[1])
+    return inv_plain(F, a)
+
+
+def inv_plain(F, a):
+    """a^-1 in tensor ops on any device, the base inverse the Fermat power:
+    the plain version of the inverse kernel."""
     # conj = a0 - a1 x; norm = a0^2 - 7 a1^2 (base field); a^-1 = conj/norm
     a0sq = F.mul(a[0], a[0])
     a1sq = F.mul(a[1], a[1])
     norm = F.sub(a0sq, mul_w(F, a1sq))
-    ninv = F.inv(norm)
+    ninv = F.pow_const(norm, F.P - 2)
     return (F.mul(a[0], ninv), F.neg(F.mul(a[1], ninv)))
 
 

@@ -186,7 +186,13 @@ def pow_const(a, e: int):
 
 
 def inv(a):
-    """Fermat inverse a^(p-2); inv(0) = 0."""
+    """Fermat inverse a^(p-2); inv(0) = 0. A CUDA tensor launches the
+    inverse kernel (ops/witness_kernel.gl_inv, canonical output); a CPU
+    tensor takes this power, its plain version."""
+    if torch.is_tensor(a) and a.device.type != "cpu":
+        from .witness_kernel import gl_inv  # witness_kernel imports this module
+
+        return gl_inv(a)
     return pow_const(a, P - 2)
 
 

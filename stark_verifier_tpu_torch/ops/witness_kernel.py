@@ -1,4 +1,5 @@
-"""The recursive provers' two witness kernels (csrc/witness.cu).
+"""The provers' kernels of csrc/witness.cu: witness generation, the field
+inverse and the PoseidonGate constraint evaluation.
 
 `poseidon_gate_fill(ins, swap)`: all 135 wires of a PoseidonGate row,
 int64[12, ...] inputs and int64[...] swap bits -> int64[135, ...],
@@ -14,17 +15,45 @@ coefficients (component 1 zero for base ones) -> every accumulator,
 int64[k, 2, ...], canonical. `ext2_reduce_chain_plain` is the same loop in
 `ops/ext2` tensor ops.
 
-Neither replaces a TPU kernel: they are the card's counterparts of the two
-host C planes the JAX package's recursion prover calls
-(`svt_poseidon_fill_batch`, `svt_ext2_reduce_chain`, native/svt_poseidon.c).
-A CUDA tensor launches the kernel or raises; only a CPU tensor takes the
-plain version. Trailing dims are flattened into the kernels' lane axis.
+`ext2_arith(c0, c1, x, y, z)`: c0 * x * y + c1 * z in GF(p^2) for python-int
+constants, int64[2, ...] operands -> int64[2, ...], canonical: the body of
+the ArithmeticExtension and (c1 = 0) MulExtension generators
+(prover/builder.py). Its plain version is the builder's `_linear` over
+`_ext_mul`.
 
-The recursive provers launch both at 1 to 64 lanes, so each is laid out to
-shorten one lane's latency: the fill runs twelve threads a lane (one state
-word each, two lanes a warp), the chain one warp a lane (a scan over chunks
-of 32 steps). `schedule_fill_ints` and `schedule_chain_ints` restate their
-schedules on python ints, thread by thread, for the CPU tests.
+`gl_inv(a)` and `ext2_inv(a)`: the inverse in GF(p), int64[...] ->
+int64[...], and in GF(p^2), int64[2, ...] -> int64[2, ...], canonical, 0
+for 0 (and for p). `gl64.inv` and `ext2.inv` launch them on a CUDA tensor:
+every inverse and division of the provers and of the verifier. The plain
+versions are the Fermat power `gl64.pow_const(a, P - 2)` and `ext2.inv`'s
+formula over it.
+
+`poseidon_gate_eval(wires)`: the 123 PoseidonGate constraints from the
+gate's 135 wire planes (int64[135, ...] or 135 tensors of one shape) ->
+int64[123, ...], canonical, in `core/gates._poseidon_eval_base`'s order,
+which is the plain version. `PoseidonGate.eval_unfiltered` launches it over
+the base ring on a CUDA device: the prover's quotient on the LDE coset.
+Planes that are consecutive slices of one tensor (the quotient's
+`list(wire_lde)`) are read where they lie, through one pointer and a plane
+stride; others are stacked first.
+
+None replaces a TPU kernel: they are the card's counterparts of the host C
+planes the JAX package's provers call (`svt_poseidon_fill_batch`,
+`svt_ext2_reduce_chain`, `svt_ext2_arith_batch`,
+`svt_poseidon_eval_batch_p` in native/svt_poseidon.c) and of its numpy
+field's inverse (`gl64_np.inv` on the `svt_gl_mul` plane). A CUDA tensor
+launches the kernel or raises; only a CPU tensor takes the plain version.
+Trailing dims are flattened into the kernels' lane axis; a call of 0 lanes
+launches nothing.
+
+The recursive provers launch the fill and the chain at 1 to 64 lanes, so
+each is laid out to shorten one lane's latency: the fill runs twelve
+threads a lane (one state word each, two lanes a warp), the chain one warp
+a lane (a scan over chunks of 32 steps). The three later kernels run one
+thread a lane. `schedule_fill_ints`, `schedule_chain_ints`,
+`schedule_arith_ints`, `schedule_inv_ints`, `schedule_ext2_inv_ints` and
+`schedule_eval_ints` restate their schedules on python ints, thread by
+thread, for the CPU tests.
 """
 from __future__ import annotations
 
@@ -37,7 +66,10 @@ from . import ext2, gl64
 
 WIDTH = 12
 FILL_WIRES = 135
-KERNELS = ("poseidon_gate_fill", "ext2_reduce_chain")
+EVAL_CONSTRAINTS = 123
+P = gl64.P
+KERNELS = ("poseidon_gate_fill", "ext2_reduce_chain", "ext2_arith", "gl_inv", "ext2_inv",
+           "poseidon_gate_eval")
 
 # Kernel launches made by the wrappers since the counts were last set to 0.
 LAUNCHES = {name: 0 for name in KERNELS}
@@ -75,11 +107,19 @@ def _library(device: torch.device):
                                           ctypes.c_void_p, ctypes.c_void_p,
                                           ctypes.c_int, ctypes.c_longlong,
                                           ctypes.c_void_p]
+        lib.ext2_arith.argtypes = [ctypes.c_uint64, ctypes.c_uint64, ctypes.c_void_p,
+                                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.c_longlong, ctypes.c_void_p]
+        for inv in (lib.gl_inv, lib.ext2_inv):
+            inv.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                            ctypes.c_void_p]
+        lib.poseidon_gate_eval.argtypes = [ctypes.c_void_p, ctypes.c_longlong,
+                                           ctypes.c_void_p, ctypes.c_longlong,
+                                           ctypes.c_void_p]
         lib.witness_set_tables.argtypes = [ctypes.c_void_p]
         lib.witness_empty.argtypes = [ctypes.c_void_p]
-        for fn in (lib.poseidon_gate_fill, lib.ext2_reduce_chain, lib.witness_set_tables,
-                   lib.witness_table_words, lib.witness_empty):
-            fn.restype = ctypes.c_int
+        for name in KERNELS + ("witness_set_tables", "witness_table_words", "witness_empty"):
+            getattr(lib, name).restype = ctypes.c_int
         words = fill_tables().size
         if lib.witness_table_words() != words:
             raise RuntimeError(f"witness.cu expects {lib.witness_table_words()} "
@@ -125,6 +165,17 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _launch(name: str, device: torch.device, *args) -> None:
+    """One launch of kernel `name` on `device`'s current stream, counted;
+    a CUDA error raises."""
+    lib = _library(device)
+    with torch.cuda.device(device):
+        err = getattr(lib, name)(*args, _stream(device))
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
+
+
 # ------------------------------------------------------ poseidon_gate_fill
 def poseidon_gate_fill_plain(ins: torch.Tensor, swap: torch.Tensor) -> torch.Tensor:
     """The fill in plain PyTorch ops, on any device."""
@@ -145,13 +196,8 @@ def poseidon_gate_fill(ins: torch.Tensor, swap: torch.Tensor) -> torch.Tensor:
     sw = swap.reshape(lanes).contiguous()
     out = torch.empty((FILL_WIRES, lanes), dtype=torch.int64, device=ins.device)
     if lanes:
-        lib = _library(ins.device)
-        with torch.cuda.device(ins.device):
-            err = lib.poseidon_gate_fill(x.data_ptr(), sw.data_ptr(), out.data_ptr(),
-                                         lanes, _stream(ins.device))
-        if err != 0:
-            raise RuntimeError(f"poseidon_gate_fill launch failed: CUDA error {err}")
-        LAUNCHES["poseidon_gate_fill"] += 1
+        _launch("poseidon_gate_fill", ins.device, x.data_ptr(), sw.data_ptr(),
+                out.data_ptr(), lanes)
     return out.reshape((FILL_WIRES,) + tuple(ins.shape[1:]))
 
 
@@ -190,14 +236,132 @@ def ext2_reduce_chain(alpha: torch.Tensor, acc: torch.Tensor,
     c = coeffs.reshape(k, 2, lanes).contiguous()
     out = torch.empty((k, 2, lanes), dtype=torch.int64, device=alpha.device)
     if k and lanes:
-        lib = _library(alpha.device)
-        with torch.cuda.device(alpha.device):
-            err = lib.ext2_reduce_chain(a.data_ptr(), x.data_ptr(), c.data_ptr(),
-                                        out.data_ptr(), k, lanes, _stream(alpha.device))
-        if err != 0:
-            raise RuntimeError(f"ext2_reduce_chain launch failed: CUDA error {err}")
-        LAUNCHES["ext2_reduce_chain"] += 1
+        _launch("ext2_reduce_chain", alpha.device, a.data_ptr(), x.data_ptr(),
+                c.data_ptr(), out.data_ptr(), k, lanes)
     return out.reshape((k, 2) + shape)
+
+
+# ------------------------------------------------------------- ext2_arith
+def _pair_shape(name: str, *pairs) -> tuple:
+    """S of int64[2, *S] operands of one shape; raises otherwise."""
+    shape = tuple(pairs[0].shape)
+    if not shape or shape[0] != 2 or any(tuple(t.shape) != shape for t in pairs):
+        raise ValueError(f"{name}: expected operands of one shape [2, *S], got "
+                         f"{[tuple(t.shape) for t in pairs]}")
+    return shape[1:]
+
+
+def ext2_arith_plain(c0: int, c1: int, x: torch.Tensor, y: torch.Tensor,
+                     z: torch.Tensor) -> torch.Tensor:
+    """c0 * x * y + c1 * z in plain PyTorch ops, on any device: the
+    builder's generator body before the kernel (`_linear` over
+    `_ext_mul`)."""
+    from ..prover.builder import _ext_mul, _linear
+
+    F = gl64.Field(x.device)
+    return gl64.canonical(_linear(F, int(c0) % P, _ext_mul(F, x, y), int(c1) % P, z))
+
+
+def ext2_arith(c0: int, c1: int, x: torch.Tensor, y: torch.Tensor,
+               z: torch.Tensor) -> torch.Tensor:
+    """Python-int constants, int64[2, *S] x, y, z -> int64[2, *S]."""
+    shape = _pair_shape("ext2_arith", x, y, z)
+    if _device_of(x, y, z) == "cpu":
+        return ext2_arith_plain(c0, c1, x, y, z)
+    lanes = x[0].numel()
+    xs, ys, zs = (t.reshape(2, lanes).contiguous() for t in (x, y, z))
+    out = torch.empty((2, lanes), dtype=torch.int64, device=x.device)
+    if lanes:
+        _launch("ext2_arith", x.device, int(c0) % P, int(c1) % P, xs.data_ptr(),
+                ys.data_ptr(), zs.data_ptr(), out.data_ptr(), lanes)
+    return out.reshape((2,) + shape)
+
+
+# ---------------------------------------------------------- gl_inv, ext2_inv
+def gl_inv_plain(a: torch.Tensor) -> torch.Tensor:
+    """The Fermat inverse a^(p - 2) in plain PyTorch ops (`gl64.inv` on a
+    CPU tensor), canonical."""
+    return gl64.canonical(gl64.pow_const(a, P - 2))
+
+
+def gl_inv(a: torch.Tensor) -> torch.Tensor:
+    """int64[*S] -> int64[*S]: 1 / a, and 0 for 0."""
+    if _device_of(a) == "cpu":
+        return gl_inv_plain(a)
+    x = a.contiguous()
+    out = torch.empty_like(x)
+    if x.numel():
+        _launch("gl_inv", a.device, x.data_ptr(), out.data_ptr(), x.numel())
+    return out
+
+
+def ext2_inv_plain(a: torch.Tensor) -> torch.Tensor:
+    """`ext2.inv_plain` on the two rows, canonical: (a0, -a1) / (a0^2 -
+    7 a1^2), the base inverse the Fermat power."""
+    return gl64.canonical(torch.stack(ext2.inv_plain(gl64.Field(a.device), (a[0], a[1]))))
+
+
+def ext2_inv(a: torch.Tensor) -> torch.Tensor:
+    """int64[2, *S] -> int64[2, *S]: 1 / a in GF(p^2), and 0 for 0."""
+    shape = _pair_shape("ext2_inv", a)
+    if _device_of(a) == "cpu":
+        return ext2_inv_plain(a)
+    lanes = a[0].numel()
+    x = a.reshape(2, lanes).contiguous()
+    out = torch.empty_like(x)
+    if lanes:
+        _launch("ext2_inv", a.device, x.data_ptr(), out.data_ptr(), lanes)
+    return out.reshape((2,) + shape)
+
+
+# ------------------------------------------------------ poseidon_gate_eval
+def poseidon_gate_eval_plain(wires) -> torch.Tensor:
+    """The 123 constraints by core/gates._poseidon_eval_base over the base
+    ring, on any device, canonical."""
+    from ..core.gates import PoseidonGate, _poseidon_eval_base
+    from ..core.rings import BaseRing
+
+    planes = list(wires)
+    F = gl64.Field(planes[0].device)
+    shape = torch.broadcast_shapes(*(p.shape for p in planes))
+    return gl64.canonical(F.stack(_poseidon_eval_base(PoseidonGate(), BaseRing(F, shape),
+                                                      planes)))
+
+
+def _wire_planes(planes: list):
+    """(a tensor whose first word starts plane 0, the plane stride in words)
+    for 135 planes of one shape: where they are consecutive slices of one
+    tensor, each contiguous, that tensor's own memory; else a stack of
+    them."""
+    first = planes[0]
+    stride = planes[1].data_ptr() - first.data_ptr() if len(planes) > 1 else 0
+    if (stride % 8 == 0 and stride // 8 >= first.numel()
+            and all(p.is_contiguous() and p.untyped_storage().data_ptr()
+                    == first.untyped_storage().data_ptr()
+                    and p.data_ptr() == first.data_ptr() + k * stride
+                    for k, p in enumerate(planes))):
+        return first, stride // 8
+    stacked = torch.stack(planes)
+    return stacked, first.numel()
+
+
+def poseidon_gate_eval(wires) -> torch.Tensor:
+    """int64[135, *S], or 135 int64 tensors of one shape S ->
+    int64[123, *S]."""
+    planes = list(wires)
+    if len(planes) != FILL_WIRES or any(p.shape != planes[0].shape for p in planes):
+        raise ValueError(f"poseidon_gate_eval: expected 135 wire planes of one shape, got "
+                         f"{len(planes)} of shapes {sorted({tuple(p.shape) for p in planes})}")
+    if _device_of(*planes) == "cpu":
+        return poseidon_gate_eval_plain(planes)
+    shape = tuple(planes[0].shape)
+    lanes = planes[0].numel()
+    out = torch.empty((EVAL_CONSTRAINTS, lanes), dtype=torch.int64, device=planes[0].device)
+    if lanes:
+        base, stride = _wire_planes(planes)
+        _launch("poseidon_gate_eval", base.device, base.data_ptr(), stride,
+                out.data_ptr(), lanes)
+    return out.reshape((EVAL_CONSTRAINTS,) + shape)
 
 
 # ------------------------------------------------ the kernels' schedules
@@ -364,4 +528,121 @@ def schedule_chain_ints(alpha, acc, coeffs) -> list:
             x = [_ext2_add_ints(_ext2_mul_ints(A[t], carry), B[t]) for t in range(n)]
             out += [(_canonical(a), _canonical(c)) for a, c in x[:k - b]]
             carry = x[-1]
+    return out
+
+
+def schedule_arith_ints(c0: int, c1: int, x, y, z) -> tuple:
+    """The pair `ext2_arith` computes for one lane: python-int constants,
+    pairs of python ints below 2^64 -> a canonical pair. The product x y is
+    ext2_mul's schoolbook one (the twist a mul_small by 7)."""
+    from .poseidon_kernel import _mul_gl
+
+    c0, c1 = int(c0) % P, int(c1) % P
+    prod = _ext2_mul_ints(tuple(int(v) for v in x), tuple(int(v) for v in y))
+    return tuple(_canonical(_add_gl(_mul_gl(c0, p), _mul_gl(c1, int(w))))
+                 for p, w in zip(prod, z))
+
+
+def _square_n(x: int, k: int) -> int:
+    from .poseidon_kernel import _mul_gl
+
+    for _ in range(k):
+        x = _mul_gl(x, x)
+    return x
+
+
+# csrc inv_gl's addition chain, step by step: (j, k) makes t_(j + k)
+INV_CHAIN = ((1, 1), (2, 2), (4, 4), (8, 8), (16, 8), (24, 4), (28, 2), (30, 1), (31, 1))
+
+
+def _inv_gl(a: int) -> int:
+    """csrc inv_gl: a^(p - 2) by the addition chain t_(j + k) = t_j^(2^k)
+    t_k of t_k = a^(2^k - 1), p - 2 = (2^31 - 1) 2^33 + (2^32 - 1)."""
+    from .poseidon_kernel import _mul_gl
+
+    t = {1: int(a)}
+    for j, k in INV_CHAIN:
+        t[j + k] = _mul_gl(_square_n(t[j], k), t[k])
+    return _canonical(_mul_gl(_square_n(t[31], 33), t[32]))
+
+
+
+def schedule_inv_ints(a: int) -> int:
+    """`gl_inv` for one lane: a python int below 2^64 -> its canonical
+    inverse, 0 for 0 and p."""
+    return _inv_gl(a)
+
+
+def schedule_ext2_inv_ints(a) -> tuple:
+    """`ext2_inv` for one lane: a pair of python ints below 2^64 -> the
+    canonical pair of its inverse: the norm a0^2 - 7 a1^2 (canonical
+    operands subtracted), its inverse, (a0 n, -a1 n)."""
+    from .poseidon_kernel import _mul_gl
+
+    a0, a1 = (int(v) for v in a)
+    norm = _sub_canonical(_canonical(_mul_gl(a0, a0)),
+                          _canonical(_mul_small(_mul_gl(a1, a1), 7)))
+    n = _inv_gl(norm)
+    neg = _canonical(_mul_gl(a1, n))
+    return _canonical(_mul_gl(a0, n)), (P - neg if neg else 0)
+
+
+def schedule_eval_ints(wires) -> list:
+    """The 123 constraints as `poseidon_gate_eval` computes them for one
+    lane: 135 python ints below 2^64 -> 123 canonical ints. The state stays
+    in the thread's twelve words; each dense MDS row is split_row's two
+    chains over the words' 32-bit halves; the initial matrix is one chain
+    of adds a word; a sparse round adds its w-hat products to s0 * 25 one
+    after the other, each word's v product beside."""
+    from .poseidon_kernel import _DIAG0, _add_const, _mds_row, _mul_gl, _row_coeffs, _sbox7
+
+    w = [int(v) for v in wires]
+    t = [int(v) for v in fill_tables()]
+    first_at, prc_at, init_at = 30 * WIDTH, 31 * WIDTH, 31 * WIDTH + 22
+    what_at, vs_at = init_at + 11 * 11, init_at + 11 * 11 + 22 * 11
+
+    def sub_any(a, b):
+        return _sub_canonical(_canonical(a), _canonical(b))
+
+    def mds(s):
+        return [_mds_row(_row_coeffs(q), s, 2, _DIAG0 if q == 0 else 0) for q in range(WIDTH)]
+
+    out = []
+    swap = w[24]
+    out.append(sub_any(_mul_gl(swap, swap), swap))
+    s = [0] * WIDTH
+    for k in range(4):
+        lo, hi, d = w[k], w[k + 4], w[25 + k]
+        out.append(sub_any(_mul_gl(swap, sub_any(hi, lo)), d))
+        s[k], s[k + 4] = _add_gl(lo, d), sub_any(hi, d)
+    s[8:] = w[8:WIDTH]
+
+    def full_round(s, r, at):
+        sb = w[at:at + WIDTH]
+        out.extend(sub_any(_add_const(v, t[r * WIDTH + q]), sb[q]) for q, v in enumerate(s))
+        return mds([_sbox7(v) for v in sb])
+
+    s = mds([_sbox7(_add_const(v, t[q])) for q, v in enumerate(s)])
+    for r in range(1, 4):
+        s = full_round(s, r, 29 + WIDTH * (r - 1))
+    s = [_add_const(v, t[first_at + q]) for q, v in enumerate(s)]
+    u = []
+    for k in range(WIDTH - 1):
+        acc = 0
+        for r in range(WIDTH - 1):
+            acc = _add_gl(acc, _mul_gl(t[init_at + r * 11 + k], s[1 + r]))
+        u.append(acc)
+    s[1:] = u
+    for r in range(22):
+        sb = w[65 + r]
+        out.append(sub_any(s[0], sb))
+        s0 = _add_const(_sbox7(sb), t[prc_at + r])
+        d = _mul_small(s0, 25)
+        for j in range(WIDTH - 1):
+            d = _add_gl(d, _mul_gl(t[what_at + r * 11 + j], s[1 + j]))
+            s[1 + j] = _add_gl(_mul_gl(t[vs_at + r * 11 + j], s0), s[1 + j])
+        s[0] = d
+    for r in range(4):
+        s = full_round(s, 26 + r, 87 + WIDTH * r)
+    out.extend(sub_any(v, w[12 + q]) for q, v in enumerate(s))
     return out

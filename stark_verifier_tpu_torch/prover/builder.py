@@ -74,7 +74,8 @@ def _linear(F, c0: int, prod, c1: int, z):
 def _ext_mul(F, x, y) -> torch.Tensor:
     """x * y in GF(p^2) for ext pairs of [B] tensors, as int64[2, B]:
     Karatsuba's three products (ops/ext2.mul's) as one multiply of [3, B]
-    stacks, so that a generator issues a third of the multiplies' ops."""
+    stacks. With `_linear`, the plain version of the `ext2_arith` kernel
+    (ops/witness_kernel.py)."""
     t = F.mul(torch.stack([x[0], x[1], F.add(x[0], x[1])]),
               torch.stack([y[0], y[1], F.add(y[0], y[1])]))
     return torch.stack([F.add(t[0], F.mul_small(t[1], ext2.W)),
@@ -377,7 +378,8 @@ class CircuitBuilder:
 
     def mul_extension(self, c0: int, x2, y2):
         """Extension mul via MulExtensionGate: an ext pair of targets
-        constrained to c0 * x * y (plonky2 gates/multiplication_extension.rs)."""
+        constrained to c0 * x * y (plonky2 gates/multiplication_extension.rs).
+        Its generator is one `ext2_arith` launch with c1 = 0."""
         c0 = c0 % P
         gate = G.MulExtensionGate(13)
         row, i = self._slot(("mulext", c0), gate.num_ops,
@@ -388,13 +390,13 @@ class CircuitBuilder:
             self.connect(y2[k], ("w", row, b + 2 + k))
 
         def gen(s, x2=tuple(x2), y2=tuple(y2), row=row, b=b, c0=c0):
-            F = s.F
             xv = (s.get(x2[0]), s.get(x2[1]))
             yv = (s.get(y2[0]), s.get(y2[1]))
             for k in range(2):
                 s.set(("w", row, b + k), xv[k])
                 s.set(("w", row, b + 2 + k), yv[k])
-            out = _scaled(F, c0, _ext_mul(F, xv, yv))
+            x = torch.stack(xv)
+            out = witness_kernel.ext2_arith(c0, 0, x, torch.stack(yv), x)
             s.set(("w", row, b + 4), out[0])
             s.set(("w", row, b + 5), out[1])
 
@@ -403,7 +405,8 @@ class CircuitBuilder:
 
     def arithmetic_extension(self, c0: int, c1: int, x2, y2, z2):
         """c0*x*y + c1*z over the extension (plonky2
-        gates/arithmetic_extension.rs)."""
+        gates/arithmetic_extension.rs). Its generator is one `ext2_arith`
+        launch."""
         c0, c1 = c0 % P, c1 % P
         gate = G.ArithmeticExtensionGate(10)
         row, i = self._slot(("arithext", c0, c1), gate.num_ops,
@@ -416,7 +419,6 @@ class CircuitBuilder:
 
         def gen(s, x2=tuple(x2), y2=tuple(y2), z2=tuple(z2), row=row, b=b,
                 c0=c0, c1=c1):
-            F = s.F
             xv = (s.get(x2[0]), s.get(x2[1]))
             yv = (s.get(y2[0]), s.get(y2[1]))
             zv = (s.get(z2[0]), s.get(z2[1]))
@@ -424,7 +426,8 @@ class CircuitBuilder:
                 s.set(("w", row, b + k), xv[k])
                 s.set(("w", row, b + 2 + k), yv[k])
                 s.set(("w", row, b + 4 + k), zv[k])
-            out = _linear(F, c0, _ext_mul(F, xv, yv), c1, torch.stack(zv))
+            out = witness_kernel.ext2_arith(c0, c1, torch.stack(xv), torch.stack(yv),
+                                            torch.stack(zv))
             s.set(("w", row, b + 6), out[0])
             s.set(("w", row, b + 7), out[1])
 
