@@ -12,7 +12,15 @@ needs one CUDA card (built for Hopper, sm_90a), `nvcc`, and no network. It
      each library onto the card and times an empty kernel's launch from a
      CUDA graph (the launch floor, `launch_floor_ms` of every kernel row:
      no launch is shorter);
-  3. holds each kernel against its plain PyTorch version on the card, at the
+  3. holds the five field kernels of csrc/field.cu (gl64's mul, add, sub,
+     mul_add, mul_small: one launch a call on every path) word for word
+     against their plain versions on the card and on the CPU, edge words in
+     every operand, in every operand form the paths give (equal, broadcast,
+     0-dim, strided, gl64.neg's null operand) at 0 to 2^24 elements, and
+     times them from a CUDA graph beside their bounds, with the wrapper's
+     host time a call; then each other kernel against its plain PyTorch
+     version on the card (the plain versions built from gl64 ops launch
+     field kernels there, and their times include those launches), at the
      lane counts the paths give it and, for the two rate probes, on the
      card-filling tensors they are timed on (exact equality: this is modular
      arithmetic; the one float chain of the rate probe has a stated
@@ -33,7 +41,8 @@ needs one CUDA card (built for Hopper, sm_90a), `nvcc`, and no network. It
      permutation calls the path makes (136 of 1,024 lanes, 57 of 28,672
      and 8 of 114,688, by a wrapper that records each call's lane count)
      and the other kernels' is 0, that every division launched the
-     inverse kernel (7 ext2_inv launches a batch), that
+     inverse kernel (7 ext2_inv launches a batch), that the field kernels
+     launched exactly ZK20_FIELD_LAUNCHES a batch, that
      accept bits and challenges are equal across the variants, and that
      they equal the same path run with the plain permutation on the card
      and on the CPU;
@@ -49,15 +58,17 @@ needs one CUDA card (built for Hopper, sm_90a), `nvcc`, and no network. It
      hash) tiled to a batch of 256 through make_verifier_fn_batched on the
      card: all accepted, corrupted lanes and only those rejected, 230
      bridge launches and 2 Poseidon launches a batch (the public-input
-     hash) and no other kernel, challenges equal to the CPU path's, proof 0
+     hash), 11 ext2_inv launches, the field kernels' WRAPPED_FIELD_LAUNCHES
+     and no other kernel, challenges equal to the CPU path's, proof 0
      through make_verifier_fn with the same bit, and ms a batch;
   8. drives the compiled verifier (models/flagship.compiled_verifier, a
      CUDA graph captured once and replayed) on both batches, zk20 (1024,
      mode "batched") and wrapped (256): one eager batch first under
      torch.cuda.set_sync_debug_mode("error") (no host sync on the path),
      then the capture, which counts the eager batch's launches exactly
-     (the inverse kernel's among them),
-     its capture and instantiate seconds, the graph's node count and peak
+     (the inverse kernel's and the field kernels' among them),
+     its capture and instantiate seconds, the graph's node count (below
+     30,000 for zk20 and 35,000 for wrapped: about one node a launch) and peak
      device bytes; the clean and the corrupted batch replayed through one
      graph with accept bits equal to the eager path's (the corrupted lanes,
      and only those, rejected), no launch counted on the host by a replay,
@@ -91,7 +102,8 @@ needs one CUDA card (built for Hopper, sm_90a), `nvcc`, and no network. It
      max_lanes=32 equal, proof by proof, two proves of 32 from the same
      generators (the quotient's PoseidonGate constraints in one
      poseidon_gate_eval launch, the inverses in gl_inv and ext2_inv
-     launches); 2 signals proved with the kernel,
+     launches; the field kernels' launches pinned, PROVE_FIELD_LAUNCHES);
+     2 signals proved with the kernel,
      with the plain permutation on the card and on the CPU (a spawned
      process beside the card's work) give equal proofs,
      whose grind witnesses are the lowest a CPU scan finds; the three
@@ -157,6 +169,7 @@ from stark_verifier_tpu_torch.core.merkle import MerkleTree, verify_merkle_proof
 from stark_verifier_tpu_torch.core.types import load_proofs
 from stark_verifier_tpu_torch.models import flagship as FS
 from stark_verifier_tpu_torch.ops import cuda_build, gl64, hashers, probes
+from stark_verifier_tpu_torch.ops import field_kernel as FK
 from stark_verifier_tpu_torch.ops import poseidon_bn254_kernel as bk
 from stark_verifier_tpu_torch.ops import poseidon_gl as pg
 from stark_verifier_tpu_torch.ops import ntt, ntt_np
@@ -312,6 +325,15 @@ EVAL_INT32_INSTR_PER_LANE = (
     118 * 4 * 20 + 8 * 410 + 121 * (20 + 9) + 22 * (22 * (20 + 9) + 5) + 130 * 9
     + 123 * 9 + 5 * 20 + 8 * 9)
 EVAL_BYTES_PER_LANE = (135 + 123) * 8
+# the field kernels, one element: the words read and written (three for
+# mul, add and sub, four for mul_add, two for mul_small); operations counted
+# from the built library's machine code (phase_field_kernels), else at the
+# Poseidon count's unit costs: a field multiply 20, an add on any
+# representative 9, a subtraction the same
+FIELD_BYTES_PER_ELEMENT = {"gl_mul": 24, "gl_add": 24, "gl_sub": 24, "gl_mul_add": 32,
+                           "gl_mul_small": 16}
+FIELD_INT32_INSTR_PER_ELEMENT = {"gl_mul": 20, "gl_add": 9, "gl_sub": 9, "gl_mul_add": 29,
+                                 "gl_mul_small": 20}
 
 KERNEL_FILES = {
     "poseidon_permute": ("stark_verifier_tpu_torch/ops/csrc/poseidon_gl.cu",
@@ -345,9 +367,17 @@ KERNEL_FILES = {
                  "stark_verifier_tpu/ops/ext2.py:87"),
     "poseidon_gate_eval": ("stark_verifier_tpu_torch/ops/csrc/witness.cu",
                            "native/svt_poseidon.c:680"),
+    # the elementwise field plane: the JAX package's host C plane for four of
+    # them, its numpy field's small-constant multiply for the fifth
+    "gl_mul": ("stark_verifier_tpu_torch/ops/csrc/field.cu", "native/svt_poseidon.c:277"),
+    "gl_add": ("stark_verifier_tpu_torch/ops/csrc/field.cu", "native/svt_poseidon.c:295"),
+    "gl_sub": ("stark_verifier_tpu_torch/ops/csrc/field.cu", "native/svt_poseidon.c:321"),
+    "gl_mul_add": ("stark_verifier_tpu_torch/ops/csrc/field.cu", "native/svt_poseidon.c:339"),
+    "gl_mul_small": ("stark_verifier_tpu_torch/ops/csrc/field.cu",
+                     "stark_verifier_tpu/ops/gl64_np.py:154"),
 }
 ADDITIONS = {"bridge_permute12", "poseidon_gate_fill", "ext2_reduce_chain", "ext2_arith",
-             "gl_inv", "ext2_inv", "poseidon_gate_eval"}
+             "gl_inv", "ext2_inv", "poseidon_gate_eval", *FK.KERNELS}
 PERMUTES = {m: functools.partial(pg.permute, mxu=m) for m in (0, 1, 2)}
 
 EDGES = np.array(
@@ -422,6 +452,7 @@ def phase_build(device):
     probes._library()
     bk._library(device)
     WK._library(device)
+    FK._library(device)
     seconds = time.time() - t0
     LAUNCH_FLOOR["ms"] = graph_ms(lambda: WK.empty_launch(device), 50)
     emit({"phase": "build", "sources": sorted(cuda_build.SOURCES.values()),
@@ -438,7 +469,7 @@ def phase_build(device):
         check(bool(functions) and all("registers" in f and "spill_stores" in f
                                       for f in functions),
               f"no ptxas report for {name}")
-        if name in WK.KERNELS:
+        if name in WK.KERNELS + FK.KERNELS:
             check(all(f["spill_stores"] == 0 and f["spill_loads"] == 0 for f in functions),
                   f"{name} spills: {functions}")
         emit({"phase": "ptxas", "kernel": name, "source": source,
@@ -471,6 +502,177 @@ def kernel_row(name, ms, plain_ms, t_bytes, t_ops, library_ms=None,
             "bound_operations_ms": t_ops, **least_time(t_bytes, t_ops), **extra}
 
 
+# ------------------------------------------------------------ field kernels
+# element counts at which phase_field_kernels holds the five field kernels
+# against their plain versions: none, one, a ragged count, the counts the
+# verifier paths launch them at most (a zk20 batch of 1,024 makes 8,471 of
+# its 12,385 field launches at 1,024 elements, 3,080 at 28 x 1,024 and 313
+# at 12 x 1,024; a wrapped batch the same at 256 lanes), and the card's width
+FIELD_SIZES = [0, 1, 7, 1025, WRAPPED_BATCH, BATCH, 12 * BATCH, 28 * BATCH, 1 << 24]
+FIELD_TIMED_SIZES = [WRAPPED_BATCH, BATCH, 28 * BATCH, 1 << 24]
+FIELD_KS = [0, 1, 2, 7, 25, 2**15 - 1]      # mul_small's constants (0, 1: no launch)
+FIELD_PLAIN = {"gl_mul": gl64.mul_plain, "gl_add": gl64.add_plain, "gl_sub": gl64.sub_plain,
+               "gl_mul_add": gl64.mul_add_plain}
+FIELD_WRAPPERS = {"gl_mul": FK.mul, "gl_add": FK.add, "gl_sub": FK.sub,
+                  "gl_mul_add": FK.mul_add}
+# the field kernels' launches by the path that made them (main_path,
+# wrapped, prove, recursion), for the kernels' rows
+FIELD_PATH_LAUNCHES: dict = {}
+
+
+def field_words(rng, shape):
+    """uint64 words of `shape`: full-range ones, a quarter of them edge
+    words; where there is room, every triple of edge words first."""
+    w = rng.integers(0, 2**64, size=shape, dtype=np.uint64)
+    pick = rng.random(shape) < 0.25
+    w[pick] = rng.choice(EDGES, size=int(pick.sum()))
+    return w
+
+
+def field_operands(rng, n, device):
+    """{form: (a, b, c)} on the card, each form's output n elements (n x 2
+    for "broadcast"): "equal" ([n] each; every triple of edge words among
+    them where n allows), "broadcast" ([2, n] against [n] and [2, 1], the
+    NTT's twiddles), "0-dim" ([n] against two 0-dim words, `F.const`),
+    "strided" (views with strides 2 and 3, the prover's halving fold)."""
+    m = len(EDGES)
+    eq = field_words(rng, (3, n))
+    if n >= m ** 3:
+        eq[:, :m ** 3] = np.stack(np.meshgrid(EDGES, EDGES, EDGES, indexing="ij")).reshape(3, -1)
+    up = functools.partial(gl64.from_u64, device=device)
+    two, three = up(field_words(rng, (n, 2))), up(field_words(rng, (n, 3)))
+    return {"equal": tuple(up(w) for w in eq),
+            "broadcast": (up(field_words(rng, (2, n))), up(eq[1]), up(field_words(rng, (2, 1)))),
+            "0-dim": (up(eq[0]), up(field_words(rng, ())), up(field_words(rng, ()))),
+            "strided": (two[:, 0], two[:, 1], three[:, 2])}
+
+
+def field_sass_ops():
+    """{kernel: machine instructions an element, loads, stores and the
+    loop's control left out} of each field kernel's one-dim form, from the
+    built library (`cuobjdump`), or None without it."""
+    listing = sass.listings(cuda_build._target("field"))
+    if listing is None:
+        return None
+    found = {}
+    for name in FK.KERNELS:
+        ident = f"{name}_kernel"
+        fns = [k for k in listing if k.startswith(f"_Z{len(ident)}{ident}ILb1E")]
+        check(len(fns) == 1, f"{name}: one-dim kernels in the library: {fns}")
+        body = max(sass.loops(listing[fns[0]]), key=len, default=None)
+        check(body is not None, f"{name}: no loop in the one-dim kernel's machine code")
+        ops = sass.step_counts(body, 1)["by_opcode"]
+        found[name] = {"instructions": sum(c for op, c in ops.items()
+                                           if not op.startswith(("LD", "ST", "ULD"))),
+                       "by_opcode": ops}
+    return found
+
+
+def phase_field_kernels(device, rows):
+    """The five field kernels of csrc/field.cu word for word against their
+    plain versions, on the card and on the CPU, in every operand form the
+    paths give, edge words in every operand, at FIELD_SIZES; then timed
+    (device time from a CUDA graph) at FIELD_TIMED_SIZES beside their bounds
+    and the launch floor, and the wrapper's host time a call."""
+    rng = np.random.default_rng(SEED + 20)
+    checked = 0
+    by_kernel = {name: {} for name in FK.KERNELS}
+    for n in FIELD_SIZES:
+        forms = field_operands(rng, n, device)
+        for form, (a, b, c) in forms.items():
+            on_cpu = n < (1 << 24) or form == "equal"
+            cpu = [t.cpu() for t in (a, b, c)] if on_cpu else None
+            for name in FK.KERNELS:
+                if name == "gl_mul_small":
+                    cases = [(f"k={k}", lambda k=k: FK.mul_small(a, k),
+                              lambda k=k: gl64.mul_small_plain(a, k),
+                              lambda k=k: gl64.mul_small_plain(cpu[0], k), k > 1)
+                             for k in FIELD_KS]
+                else:
+                    arity = 3 if name == "gl_mul_add" else 2
+                    cases = [("", lambda: FIELD_WRAPPERS[name](*(a, b, c)[:arity]),
+                              lambda: FIELD_PLAIN[name](*(a, b, c)[:arity]),
+                              lambda: FIELD_PLAIN[name](*cpu[:arity]), True)]
+                    if name == "gl_sub":
+                        cases.append(("neg", lambda: FK.neg(c),
+                                      lambda: gl64.sub_plain(torch.zeros_like(c), c),
+                                      lambda: gl64.sub_plain(torch.zeros_like(cpu[2]), cpu[2]),
+                                      True))
+                for label, kernel, plain, plain_cpu, launches in cases:
+                    before = FK.LAUNCHES[name]
+                    got = kernel()
+                    where = f"{name} {label} ({form}, {n} elements)"
+                    check(FK.LAUNCHES[name] - before == int(launches and got.numel() > 0),
+                          f"{where}: launched {FK.LAUNCHES[name] - before} times")
+                    want = plain()
+                    check(got.shape == want.shape and torch.equal(got, want),
+                          f"{where} differs from its plain version on the card")
+                    if on_cpu:
+                        check(torch.equal(got.cpu(), plain_cpu()),
+                              f"{where} differs from its plain version on the CPU")
+                    checked += 1
+        del forms
+        torch.cuda.empty_cache()
+
+    # ---- timed, the equal form: device time from a CUDA graph of 50
+    # launches, beside the bounds; the plain version's one call
+    sass_ops = field_sass_ops()
+    for n in FIELD_TIMED_SIZES:
+        a, b, c = (gl64.from_u64(field_words(rng, (n,)), device) for _ in range(3))
+        calls = {"gl_mul": (lambda: FK.mul(a, b), lambda: gl64.mul_plain(a, b)),
+                 "gl_add": (lambda: FK.add(a, b), lambda: gl64.add_plain(a, b)),
+                 "gl_sub": (lambda: FK.sub(a, b), lambda: gl64.sub_plain(a, b)),
+                 "gl_mul_add": (lambda: FK.mul_add(a, b, c),
+                                lambda: gl64.mul_add_plain(a, b, c)),
+                 "gl_mul_small": (lambda: FK.mul_small(a, 7),
+                                  lambda: gl64.mul_small_plain(a, 7))}
+        for name, (kernel, plain) in calls.items():
+            instr = (FIELD_INT32_INSTR_PER_ELEMENT[name] if sass_ops is None
+                     else sass_ops[name]["instructions"])
+            t_bytes = n * FIELD_BYTES_PER_ELEMENT[name] / PEAK_BYTES_PER_S * 1e3
+            t_ops = n * instr / PEAK_INT32_INSTR_PER_S * 1e3
+            _, plain_ms = timed_plain(plain)
+            by_kernel[name][n] = {"ms": graph_ms(kernel, 50), "plain_ms": plain_ms,
+                                  "bound_bytes_ms": t_bytes, "bound_operations_ms": t_ops,
+                                  **least_time(t_bytes, t_ops)}
+        del a, b, c
+
+    # ---- the wrapper's host time a call, at the zk20 path's most frequent
+    # count (1,024 elements): calls issued back to back, no synchronise
+    # between them, beside the plain version's (40 PyTorch ops for mul)
+    a, b = (gl64.from_u64(field_words(rng, (BATCH,)), device) for _ in range(2))
+    host_us = {}
+    for label, fn in (("gl_mul", lambda: FK.mul(a, b)), ("gl_add", lambda: FK.add(a, b)),
+                      ("gl_mul, 0-dim operand", lambda: FK.mul(a, b[0])),
+                      ("of which launch_args", lambda: FK.launch_args(a, b)),
+                      ("of which torch.empty", lambda: torch.empty_like(a)),
+                      ("gl_mul_plain", lambda: gl64.mul_plain(a, b))):
+        reps = 2000 if "plain" not in label else 200
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_us[label] = (time.perf_counter() - t0) / reps * 1e6
+        torch.cuda.synchronize()
+
+    widest = FIELD_TIMED_SIZES[-1]
+    for name in FK.KERNELS:
+        top = by_kernel[name][widest]
+        rows[name] = kernel_row(
+            name, top["ms"], top["plain_ms"], top["bound_bytes_ms"],
+            top["bound_operations_ms"], elements=widest, by_elements=by_kernel[name],
+            instructions_an_element="not measured: no cuobjdump" if sass_ops is None
+            else sass_ops[name]["instructions"],
+            sass_an_element=None if sass_ops is None else sass_ops[name]["by_opcode"],
+            hand_count_an_element=FIELD_INT32_INSTR_PER_ELEMENT[name])
+    emit({"phase": "field_kernels", "sizes": FIELD_SIZES,
+          "forms": ["equal", "broadcast", "0-dim", "strided", "neg (null operand)"],
+          "checks": checked, "equal_to_plain_on_card_and_cpu": True,
+          "host_us_a_call": host_us,
+          **{name: rows[name] for name in FK.KERNELS}})
+
+
 # Lane counts at which a verifier path launches the Poseidon kernel: one
 # proof's transcript, leaf hashes and merged walk (1, 28, 112), the wrapped
 # path's public-input hash (256), and a zk20 batch of 1024: its transcript
@@ -483,6 +685,21 @@ ZK20_LAUNCHES_BY_LANES = {BATCH: 136, 28 * BATCH: 57, 4 * 28 * BATCH: 8}
 # ext2.div is one ext2_inv (one at [B], the others at [B, 28]); no gl_inv
 ZK20_INVERSE_LAUNCHES = {"ext2_inv": 7}
 WRAPPED_INVERSE_LAUNCHES = {"ext2_inv": 11}
+# the field kernels' launches in one batch of the batched verifier: every
+# gl64.mul, add, sub (8 / 16 of them gl64.neg) and mul_small outside the
+# Poseidon, bridge and inverse kernels; the verifier's extension ring has no
+# mul_add. tests/test_torch_field_kernel.py counts the zk20 path's calls on
+# the CPU against these.
+ZK20_FIELD_LAUNCHES = {"gl_mul": 3495, "gl_add": 6381, "gl_sub": 1337, "gl_mul_add": 0,
+                       "gl_mul_small": 1172}
+WRAPPED_FIELD_LAUNCHES = {"gl_mul": 3821, "gl_add": 6957, "gl_sub": 1562, "gl_mul_add": 0,
+                          "gl_mul_small": 1284}
+# ... and in the prove phase's counted prove_batch of 64 signals (the
+# quotient's gates over the base ring call mul_add)
+PROVE_FIELD_LAUNCHES = {"gl_mul": 991, "gl_add": 906, "gl_sub": 327, "gl_mul_add": 170,
+                        "gl_mul_small": 190}
+# a compiled batch's graph holds at most this many nodes (its launches)
+GRAPH_NODES_AT_MOST = {"zk20": 30_000, "wrapped": 35_000}
 # witness.cu's launches by the path that made them (main_path, prove), for
 # the kernels' rows that phase_recursion writes
 PATH_LAUNCHES: dict = {}
@@ -743,7 +960,7 @@ def corrupt(batched, lanes):
 
 
 def reset_counts():
-    for counts in (pk.LAUNCHES, probes.LAUNCHES, bk.LAUNCHES, WK.LAUNCHES):
+    for counts in (pk.LAUNCHES, probes.LAUNCHES, bk.LAUNCHES, WK.LAUNCHES, FK.LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -816,6 +1033,10 @@ def phase_main_path(device, rows):
               f"mxu={mxu}: witness.cu launches {inverses} in a batch, expected "
               f"{ZK20_INVERSE_LAUNCHES}")
         PATH_LAUNCHES["zk20_batch"] = inverses
+        check(FK.LAUNCHES == ZK20_FIELD_LAUNCHES,
+              f"mxu={mxu}: field launches {FK.LAUNCHES} in a batch, expected "
+              f"{ZK20_FIELD_LAUNCHES}")
+        FIELD_PATH_LAUNCHES["zk20_batch"] = dict(FK.LAUNCHES)
         check(ok.dtype == torch.bool and tuple(ok.shape) == (BATCH,),
               f"accept bits have shape {tuple(ok.shape)} and type {ok.dtype}")
         check(bool(ok.all()),
@@ -881,8 +1102,10 @@ def phase_main_path(device, rows):
         times.append(time.perf_counter() - t0)
     check(bool(ok.all()), "a repetition rejected an honest proof")
     check(pk.LAUNCHES[pk.KERNELS[default]] == reps * n_calls
-          and WK.LAUNCHES["ext2_inv"] == reps * ZK20_INVERSE_LAUNCHES["ext2_inv"],
-          f"the default entry point launched {pk.LAUNCHES}, {WK.LAUNCHES} in {reps} batches")
+          and WK.LAUNCHES["ext2_inv"] == reps * ZK20_INVERSE_LAUNCHES["ext2_inv"]
+          and FK.LAUNCHES == {k: reps * c for k, c in ZK20_FIELD_LAUNCHES.items()},
+          f"the default entry point launched {pk.LAUNCHES}, {WK.LAUNCHES}, {FK.LAUNCHES} "
+          f"in {reps} batches")
     ms = float(np.median(times)) * 1e3
     for name in pk.KERNELS:
         rows.setdefault(name, {})["launches"] = launches[name]
@@ -893,7 +1116,7 @@ def phase_main_path(device, rows):
           "fold_layers": len(common.fri_params.reduction_arity_bits),
           "accepted": int(ok.sum()), "rejected_lanes": lanes,
           "launches_by_variant": launches, "permutation_calls": n_calls,
-          "inverse_launches": ZK20_INVERSE_LAUNCHES,
+          "inverse_launches": ZK20_INVERSE_LAUNCHES, "field_launches": ZK20_FIELD_LAUNCHES,
           "launches_by_lanes": by_lanes[pk.KERNELS[default]],
           "equal_across_variants": True,
           "equal_to_plain_on_card": True, "equal_to_cpu": True,
@@ -1005,6 +1228,12 @@ def corrupt_wrapped(batched, lanes):
     return bad
 
 
+def wrapped_launches(default):
+    """Every kernel's launches in one wrapped batch of 256, the nonzero ones."""
+    return {"bridge_permute12": 230, default: 2, **WRAPPED_INVERSE_LAUNCHES,
+            **{k: c for k, c in WRAPPED_FIELD_LAUNCHES.items() if c}}
+
+
 def phase_wrapped(device, rows):
     """The bn254-wrapped path: the wrapper circuit's 16 proofs tiled to a
     batch of 256 through make_verifier_fn_batched on the card."""
@@ -1034,15 +1263,16 @@ def phase_wrapped(device, rows):
     ok = fn(pa)
     torch.cuda.synchronize()
     ms_first = (time.perf_counter() - t0) * 1e3
-    counts = {**pk.LAUNCHES, **bk.LAUNCHES, **probes.LAUNCHES}
+    counts = launch_counts()
     check(ok.dtype == torch.bool and tuple(ok.shape) == (WRAPPED_BATCH,),
           f"accept bits have shape {tuple(ok.shape)} and type {ok.dtype}")
     check(bool(ok.all()), f"{int((~ok).sum())} honest wrapped proofs were rejected")
     default = pk.KERNELS[pk._use_mxu()]
-    check(counts["bridge_permute12"] == 230 and counts[default] == 2
-          and all(c == 0 for k, c in counts.items()
-                  if k not in ("bridge_permute12", default)),
-          f"launches in one wrapped batch: {counts}")
+    # the bridge, the public-input hash's Poseidon, the divisions' inverse,
+    # the field kernels, and no other
+    check(counts == wrapped_launches(default), f"launches in one wrapped batch: {counts}, "
+          f"expected {wrapped_launches(default)}")
+    FIELD_PATH_LAUNCHES["wrapped_batch"] = dict(FK.LAUNCHES)
     rows.setdefault("bridge_permute12", {})["launches"] = counts["bridge_permute12"]
     ok_bad = fn(pa_bad)
     check(torch.equal(ok_bad.cpu(), expect),
@@ -1083,7 +1313,7 @@ def phase_wrapped(device, rows):
           "fold_layers": len(common.fri_params.reduction_arity_bits),
           "gates": [type(g).__name__ for g in common.gates],
           "accepted": int(ok.sum()), "rejected_lanes": lanes,
-          "launches_per_batch": {k: c for k, c in counts.items() if c},
+          "launches_per_batch": counts,
           "challenges_equal_to_cpu": True, "per_proof_equal": True,
           "ms_first_batch": ms_first, "ms_per_batch": ms,
           "ms_per_batch_all": [t * 1e3 for t in times],
@@ -1103,7 +1333,8 @@ def graph_nodes(graph):
 
 def launch_counts():
     """Every kernel's launch count since reset_counts(), the nonzero ones."""
-    counts = {**pk.LAUNCHES, **bk.LAUNCHES, **probes.LAUNCHES, **WK.LAUNCHES}
+    counts = {**pk.LAUNCHES, **bk.LAUNCHES, **probes.LAUNCHES, **WK.LAUNCHES,
+              **FK.LAUNCHES}
     return {k: c for k, c in counts.items() if c}
 
 
@@ -1209,9 +1440,11 @@ def phase_compiled(device, rows):
     pa = to_device(batched)
     comp, out["zk20"] = compiled_cell(common, vk, pa,
                                       to_device(corrupt(batched, lanes)), expect)
-    check(out["zk20"]["launches_at_capture"]
-          == {default: sum(ZK20_LAUNCHES_BY_LANES.values()), **ZK20_INVERSE_LAUNCHES},
-          f"zk20: launches at capture {out['zk20']['launches_at_capture']}")
+    zk20_launches = {default: sum(ZK20_LAUNCHES_BY_LANES.values()), **ZK20_INVERSE_LAUNCHES,
+                     **{k: c for k, c in ZK20_FIELD_LAUNCHES.items() if c}}
+    check(out["zk20"]["launches_at_capture"] == zk20_launches,
+          f"zk20: launches at capture {out['zk20']['launches_at_capture']}, expected "
+          f"{zk20_launches}")
     # a dict of another shape, or on another device, is refused
     for name, other in (("half the proofs", {k: v[: BATCH // 2] for k, v in pa.items()}),
                         ("the CPU", {k: v.cpu() for k, v in pa.items()})):
@@ -1248,9 +1481,12 @@ def phase_compiled(device, rows):
         wcommon, wvk, wto_device(wbatched),
         wto_device(corrupt_wrapped(wbatched, wlanes)), wexpect)
     del wcomp
-    check(out["wrapped"]["launches_at_capture"]
-          == {"bridge_permute12": 230, default: 2, **WRAPPED_INVERSE_LAUNCHES},
+    check(out["wrapped"]["launches_at_capture"] == wrapped_launches(default),
           f"wrapped: launches at capture {out['wrapped']['launches_at_capture']}")
+    # one field kernel a call: the graphs hold about as many nodes as launches
+    for cell, most in GRAPH_NODES_AT_MOST.items():
+        check(out[cell]["graph_nodes"] < most,
+              f"{cell}: {out[cell]['graph_nodes']} graph nodes, expected fewer than {most}")
     emit({"phase": "compiled", **out})
 
 
@@ -1625,6 +1861,9 @@ def phase_prove(device):
     check(prove_wk["poseidon_gate_eval"] == 1 and prove_wk["gl_inv"] > 0
           and prove_wk["ext2_inv"] > 0,
           f"prove: witness.cu launches {prove_wk}")
+    prove_fk = FIELD_PATH_LAUNCHES["prove"] = dict(FK.LAUNCHES)
+    check(prove_fk == PROVE_FIELD_LAUNCHES,
+          f"prove: field launches {prove_fk}, expected {PROVE_FIELD_LAUNCHES}")
     launches = {k: lanes.count(k) for k in sorted(set(lanes))}
     torch.cuda.reset_peak_memory_stats()
     stages = {}
@@ -1709,7 +1948,7 @@ def phase_prove(device):
           "zero_knowledge": common.fri_params.hiding, **out,
           "prove_s": prove_s, "proofs_per_s": PROVE_BATCH / prove_s,
           "stage_ms": stages, "launches": len(lanes), "launches_by_lanes": launches,
-          "witness_cu_launches": prove_wk,
+          "witness_cu_launches": prove_wk, "field_launches": prove_fk,
           "peak_device_bytes": peak, "accepted": int(ok.sum()), "rejected_lane": 5,
           "equal_kernel_plain_cpu": True, "vk_equal_to_cpu": True,
           "grind_witnesses": scanned, "kernels_by_lanes": kernel_times})
@@ -1860,6 +2099,37 @@ def timed_kernel(fn, plain_ms, bounds, reps=50):
             **least_time(t_bytes, t_ops)}
 
 
+def dependent_instruction_ns(device):
+    """The least time between an instruction and one that reads its
+    result, in ns: one warp of alu_probe's one-chain loop for mad_wide_u32
+    (one IMAD.WIDE.U32 a step) and cmp_add_u32 (a compare and the add it
+    guards: two a step), each at 512 and 4,608 steps from a CUDA graph, the
+    difference over 4,096 steps; the lesser of the two."""
+    rng = np.random.default_rng(SEED + 17)
+    per = {}
+    for op, a_step in (("mad_wide_u32", 1), ("cmp_add_u32", 2)):
+        x = probes.alu_input(op, 32, rng, device)
+        t = [graph_ms(lambda c=c: probes.alu_probe(x, op, c, 1), 20) for c in (512, 4608)]
+        per[op] = (t[1] - t[0]) * 1e6 / 4096 / a_step
+    return min(per.values()), per
+
+
+def critical_path_bound(device, kernel):
+    """One lane's longest chain of dependent instructions in `kernel` of
+    witness.cu's built library (`sass.critical_path`), at the least latency
+    a dependent instruction takes on this card: no launch of any width is
+    shorter. None without cuobjdump."""
+    listing = sass.listings(cuda_build._target("witness"))
+    if listing is None:
+        return None
+    ident = f"{kernel}_kernel"
+    (fn,) = [k for k in listing if k.startswith(f"_Z{len(ident)}{ident}")]
+    depth = sass.critical_path(listing[fn])
+    ns, by_op = dependent_instruction_ns(device)
+    return {"dependent_instructions": depth, "ns_a_dependent_instruction": ns,
+            "ns_by_chain": by_op, "ms": depth * ns * 1e-6}
+
+
 def c_plane_kernels(device):
     """ext2_arith, gl_inv, ext2_inv and poseidon_gate_eval against their
     plain versions on the card, exactly (edge words in every operand,
@@ -1914,6 +2184,14 @@ def c_plane_kernels(device):
         ext2_inv[lanes] = timed_kernel(lambda: WK.ext2_inv(a), plain_ms,
                                        lane_bound_ms(lanes, EXT2_INV_BYTES_PER_LANE,
                                                      EXT2_INV_INT32_INSTR_PER_LANE))
+    # a bound at every width: the Fermat chain's dependent multiplies
+    # (latency, where the bounds above count throughput)
+    path = critical_path_bound(device, "ext2_inv")
+    for at in ext2_inv.values():
+        at["critical_path"] = path
+        if path is not None:
+            larger = max(at["bound_ms"], path["ms"])
+            at.update(larger_bound_ms=larger, share_of_larger_bound=larger / at["ms"])
     ins = gl64.from_u64(edge_state(rng, 1025), device)
     sw = gl64.from_u64(rng.integers(0, 2, 1025, dtype=np.uint64), device)
     honest = WK.poseidon_gate_fill(ins, sw)
@@ -1979,6 +2257,7 @@ def phase_recursion(device, rows):
     wrap_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     counts = {**pk.LAUNCHES, **bk.LAUNCHES, **WK.LAUNCHES}
+    FIELD_PATH_LAUNCHES["wrap"] = dict(FK.LAUNCHES)
     default = pk.KERNELS[pk._use_mxu()]
     fills = gate_rows(wd, G.PoseidonGate)
     chains = gate_rows(wd, G.ReducingGate, G.ReducingExtensionGate)
@@ -2030,7 +2309,7 @@ def phase_recursion(device, rows):
             "PoseidonGate", "ArithmeticExtensionGate", "ArithmeticGate", "RandomAccessGate",
             "ReducingGate", "ReducingExtensionGate", "ConstantGate", "NoopGate")},
         "prove_s": wrap_s, "proofs_per_s": WRAP_BATCH / wrap_s, "stage_ms": stages,
-        "peak_device_bytes": peak,
+        "peak_device_bytes": peak, "field_launches": FIELD_PATH_LAUNCHES["wrap"],
         "launches_by_lanes": {
             "bridge_permute12": {n: bridge_lanes.count(n) for n in sorted(set(bridge_lanes))},
             default: {n: poseidon_lanes.count(n) for n in sorted(set(poseidon_lanes))},
@@ -2096,6 +2375,7 @@ def phase_recursion(device, rows):
     for st, built in zip(stats, builds):
         st.update(built)
     agg_counts = {**pk.LAUNCHES, **bk.LAUNCHES, **WK.LAUNCHES}
+    FIELD_PATH_LAUNCHES["aggregation"] = dict(FK.LAUNCHES)
     agg_launches = {**WK.LAUNCHES, default: agg_counts[default]}
     agg_fills = sum(st["gate_rows"]["PoseidonGate"] for st in stats)
     agg_chains = sum(st["gate_rows"].get(g, 0) for st in stats
@@ -2125,6 +2405,7 @@ def phase_recursion(device, rows):
     out["aggregation"] = {"signals": RECURSION_SIGNALS, "zero_knowledge": True,
                           "levels": stats, "seconds": agg_s,
                           "launches": agg_launches,
+                          "field_launches": FIELD_PATH_LAUNCHES["aggregation"],
                           "prover_poseidon_launches_by_lanes": {
                               n: agg_lanes.count(n) for n in sorted(set(agg_lanes))},
                           "public_inputs": int(agg.proof.public_inputs.shape[0])}
@@ -2188,7 +2469,7 @@ def phase_recursion(device, rows):
           **{name: rows[name] for name in WK.KERNELS}})
 
 
-PHASES = ("poseidon_kernels", "probes", "main_path", "per_proof", "bridge_kernel",
+PHASES = ("field_kernels", "poseidon_kernels", "probes", "main_path", "per_proof", "bridge_kernel",
           "wrapped", "compiled", "sharded", "ntt", "codec", "prove", "recursion")
 
 
@@ -2223,6 +2504,15 @@ def main():
         print(smi_line, flush=True)
         emit({"partial": only})
         return
+    # the field kernels' rows: a zk20 batch's launches (the main path);
+    # gl_mul_add, which the verifier's extension ring never calls, the
+    # counted prove's (its path); every path's beside them
+    for fname in FK.KERNELS:
+        path = "prove" if fname == "gl_mul_add" else "zk20_batch"
+        rows[fname].update(launches=FIELD_PATH_LAUNCHES[path][fname], launches_path=path)
+    check(all(rows[n]["launches"] > 0 for n in KERNEL_FILES),
+          f"a kernel no path launched: {[n for n in KERNEL_FILES if not rows[n]['launches']]}")
+    emit({"phase": "field_launches_by_path", **FIELD_PATH_LAUNCHES})
     keys = ("name", "route", "source", "replaces", "addition", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launch_floor_ms", "least_by")

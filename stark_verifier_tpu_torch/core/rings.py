@@ -42,7 +42,7 @@ class BaseRing:
         return self.F.mul(a, b)
 
     def mul_add(self, a, b, c):
-        return self.F.add(self.F.mul(a, b), c)
+        return self.F.mul_add(a, b, c)
 
     def square(self, a):
         return self.F.mul(a, a)

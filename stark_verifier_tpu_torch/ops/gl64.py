@@ -97,7 +97,32 @@ def ones(shape=(), device=None) -> torch.Tensor:
 
 
 # ----------------------------------------------------------------- field ops
-def add(x, y):
+# mul, add, sub, mul_add and mul_small (and neg, square through them) launch
+# one kernel of csrc/field.cu on a tensor off the CPU (ops/field_kernel.py:
+# the same words, or a raise); on CPU tensors they are the *_plain chains
+# below, which the tests and chip_smoke.py hold the kernels against.
+_fk = None
+
+
+def _kernels():
+    """ops/field_kernel, imported at the first launch (it imports this
+    module)."""
+    global _fk
+    if _fk is None:
+        from . import field_kernel
+
+        _fk = field_kernel
+    return _fk
+
+
+def _on_card(*operands) -> bool:
+    for t in operands:
+        if isinstance(t, torch.Tensor) and not t.is_cpu:
+            return True
+    return False
+
+
+def add_plain(x, y):
     """x + y mod p on any representatives: a wrap past 2^64 folds as
     +EPSILON, and that fold can itself wrap once more."""
     s1 = x + y
@@ -107,7 +132,7 @@ def add(x, y):
     return s2 + o2 * EPSILON
 
 
-def sub(x, y):
+def sub_plain(x, y):
     d1 = x - y
     b1 = _ult(x, y)
     d2 = d1 - b1 * EPSILON
@@ -115,8 +140,23 @@ def sub(x, y):
     return d2 - b2 * EPSILON
 
 
+def add(x, y):
+    if _on_card(x, y):
+        return _kernels().add(x, y)
+    return add_plain(x, y)
+
+
+def sub(x, y):
+    if _on_card(x, y):
+        return _kernels().sub(x, y)
+    return sub_plain(x, y)
+
+
 def neg(a):
-    return sub(torch.zeros_like(a), a)
+    """0 - a: on a card `gl_sub` with a zero read in place of a tensor."""
+    if _on_card(a):
+        return _kernels().neg(a)
+    return sub_plain(torch.zeros_like(a), a)
 
 
 def _reduce128(hi, lo):
@@ -143,12 +183,24 @@ def _mul128(x, y):
     return hi, lo
 
 
-def mul(x, y):
+def mul_plain(x, y):
     return _reduce128(*_mul128(x, y))
 
 
+def mul_add_plain(a, b, c):
+    return add_plain(mul_plain(a, b), c)
+
+
+def mul(x, y):
+    if _on_card(x, y):
+        return _kernels().mul(x, y)
+    return mul_plain(x, y)
+
+
 def mul_add(a, b, c):
-    return add(mul(a, b), c)
+    if _on_card(a, b, c):
+        return _kernels().mul_add(a, b, c)
+    return mul_add_plain(a, b, c)
 
 
 def _fold_halves(s_lo, s_hi):
@@ -158,7 +210,7 @@ def _fold_halves(s_lo, s_hi):
     return _reduce128(hi, lo)
 
 
-def mul_small(a, k: int):
+def mul_small_plain(a, k: int):
     """a * k for a small static constant (0 <= k < 2^15)."""
     assert 0 <= k < (1 << 15)
     if k == 0:
@@ -166,6 +218,12 @@ def mul_small(a, k: int):
     if k == 1:
         return a
     return _fold_halves((a & _M32) * k, _shr32(a) * k)
+
+
+def mul_small(a, k: int):
+    if _on_card(a):
+        return _kernels().mul_small(a, k)
+    return mul_small_plain(a, k)
 
 
 def square(a):

@@ -1,13 +1,14 @@
 """Field-arithmetic rates of the device: sustained Goldilocks multiplies/s
-through the tensor ops of ops/gl64.py, and Poseidon permutations/s of each
+through ops/gl64.py's mul, and Poseidon permutations/s of each
 hand-written kernel variant.
 
     python3 -m stark_verifier_tpu_torch.utils.roofline
 
-needs a CUDA device. One Goldilocks multiply in ops/gl64.py is about twenty
-elementwise PyTorch kernels over 8-byte words, so that rate is bound by
-bytes and launches; a permutation kernel keeps its state in registers and
-is bound by integer operations (see ops/poseidon_kernel.py).
+needs a CUDA device. A Goldilocks multiply of ops/gl64.py on a card is
+one launch of csrc/field.cu's gl_mul over 8-byte words, so that rate is
+bound by bytes (and at small batches by the launch); a permutation kernel
+keeps its state in registers and is bound by integer operations (see
+ops/poseidon_kernel.py).
 """
 from __future__ import annotations
 

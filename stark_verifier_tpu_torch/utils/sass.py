@@ -116,3 +116,67 @@ def step_counts(loop, steps: int) -> dict:
     return {"instructions_a_step": sum(work.values()) / steps,
             "by_opcode": {k: n / steps for k, n in sorted(work.items())},
             "loop_control": control}
+
+
+_REGISTER = re.compile(r"^[-~!|]*(U?R\d+|U?P\d+)(?:\.64)?")
+# instructions that compute nothing on the path: control, barriers, and
+# reads of constants, special registers and memory (whose latency a bound
+# of the arithmetic leaves out: their results count as ready at the start)
+_NOT_ON_PATH = ("BRA", "EXIT", "RET", "NOP", "BSSY", "BSYNC", "WARPSYNC", "BAR", "MEMBAR",
+                "DEPBAR", "YIELD", "ST", "RED", "ATOM")
+_READY_AT_START = ("LD", "ULD", "S2R", "S2UR", "CS2R")
+
+
+def _registers(operand: str, wide: bool) -> list:
+    """The registers an operand names (two for a 64-bit pair), none for a
+    constant, RZ, PT or an immediate."""
+    found = []
+    for part in re.findall(r"[-~!|]*U?[RP]\d+(?:\.64)?(?:\.reuse)?", operand):
+        m = _REGISTER.match(part)
+        name = m.group(1)
+        found.append(name)
+        if (wide or part.endswith(".64") or ".64." in part) and name.lstrip("U").startswith("R"):
+            prefix = name[:name.index("R") + 1]
+            found.append(f"{prefix}{int(name[len(prefix):]) + 1}")
+    return found
+
+
+def critical_path(instructions) -> int:
+    """The dependent instructions on the longest path through straight-line
+    code (one kernel's `listings` entry without a loop): each instruction
+    one step after the latest of the registers and predicates it reads (a
+    guarded one also after its guard and its outputs' old values), loads,
+    special-register reads and constants ready at the start, control and
+    stores off the path. Outputs are the first operand and the predicates
+    that follow it (a compare's, an add's carry out); a wide (.WIDE or
+    .64) instruction writes a register pair, and a wide multiply-add reads
+    its addend as one."""
+    ready: dict = {}
+    longest = 0
+    for _, op, args, guard in instructions:
+        if op.startswith(_NOT_ON_PATH):
+            continue
+        ops = operands(args)
+        if not ops:
+            continue
+        n_out = 1
+        while n_out < len(ops) and re.fullmatch(r"U?P(\d+|T)", ops[n_out]):
+            n_out += 1
+        wide = ".WIDE" in op or ".64" in op
+        outs = _registers(ops[0], wide)
+        for o in ops[1:n_out]:
+            outs += _registers(o, False)
+        if op.startswith(_READY_AT_START):
+            for r in outs:
+                ready[r] = 0
+            continue
+        srcs = []
+        for k, o in enumerate(ops[n_out:], n_out):
+            srcs += _registers(o, ".WIDE" in op and k == len(ops) - 1)
+        if guard:
+            srcs += _registers(guard, False) + outs
+        depth = 1 + max((ready.get(r, 0) for r in srcs), default=0)
+        for r in outs:
+            ready[r] = depth
+        longest = max(longest, depth)
+    return longest

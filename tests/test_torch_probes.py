@@ -374,6 +374,24 @@ def test_step_counts_from_a_sass_listing(case):
     assert designed == (case == "one_wide_ilp1")
 
 
+@pytest.mark.parametrize("case,want", [("one_wide_ilp1", 2), ("one_wide_ilp4", 2),
+                                       ("split_ilp1", 9), ("cmp_add_ilp1", 4)])
+def test_critical_path_from_a_sass_listing(case, want):
+    """The dependent instructions on the longest register path of a
+    listing: two wide multiply-adds on one 64-bit y (the addend read as a
+    pair); four independent chains side by side, one step deep, then the
+    loop's compare after its counter; the split step's product, low add,
+    carry into the high add, twice; a compare whose predicate guards the
+    add it feeds, twice. The closing branch and the store are off the
+    path."""
+    from stark_verifier_tpu_torch.utils import sass
+
+    text = {"one_wide_ilp1": _SASS_ONE_WIDE_ILP1, "one_wide_ilp4": _SASS_ONE_WIDE_ILP4,
+            "split_ilp1": _SASS_SPLIT_ILP1, "cmp_add_ilp1": _SASS_CMP_ADD_ILP1}[case]
+    (instructions,) = sass.parse(text).values()
+    assert sass.critical_path(instructions) == want
+
+
 def test_one_table_of_least_slots_a_step():
     """Every op has its least count in probes.MIN_PIPE_SLOTS, the bound of
     chip_smoke.py reads it there (one IMAD.WIDE.U32 a mad_wide_u32 step),

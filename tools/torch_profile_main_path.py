@@ -16,8 +16,9 @@ the card
   * traces one whole call with torch.profiler and sums the device time by
     kernel: how many device kernels one batch launches, how long the device
     is busy, its idle share of the (untraced) batch time, and the share of
-    the hand-written kernels (the Goldilocks Poseidon kernel and, on the
-    wrapped circuit, the BN254 bridge kernel).
+    the hand-written kernels (the Goldilocks Poseidon kernel, the five field
+    kernels of ops/csrc/field.cu, the inverse and, on the wrapped circuit,
+    the BN254 bridge kernel).
 
 Prints one JSON line per part. Needs a CUDA device; there is no CPU mode.
 """
@@ -39,7 +40,9 @@ import torch  # noqa: E402
 from stark_verifier_tpu_torch.core import verifier as V  # noqa: E402
 from stark_verifier_tpu_torch.core.types import load_proofs  # noqa: E402
 from stark_verifier_tpu_torch.models import flagship as FS  # noqa: E402
+from stark_verifier_tpu_torch.ops import field_kernel as fk  # noqa: E402
 from stark_verifier_tpu_torch.ops import gl64  # noqa: E402
+from stark_verifier_tpu_torch.ops import witness_kernel as wk  # noqa: E402
 from stark_verifier_tpu_torch.ops import poseidon_bn254_kernel as bk  # noqa: E402
 from stark_verifier_tpu_torch.ops import poseidon_kernel as pk  # noqa: E402
 
@@ -48,7 +51,7 @@ FIXTURES = {"zk20": ("sem_zk20b64.npz", 1024), "wrapped": ("sem_wrapped16.npz", 
 
 def launches():
     """Kernel launches so far, by kernel."""
-    return {**pk.LAUNCHES, **bk.LAUNCHES}
+    return {**pk.LAUNCHES, **bk.LAUNCHES, **wk.LAUNCHES, **fk.LAUNCHES}
 
 
 def staged(F, common, vk_cap, digest, pa):
@@ -139,6 +142,8 @@ def main():
         return
     poseidon = [d for d in dev if "poseidon_permute" in d[0]]
     bridge = [d for d in dev if "bridge_permute12" in d[0]]
+    field = {name: [d for d in dev if f"{name}_kernel<" in d[0]] for name in fk.KERNELS}
+    inverse = [d for d in dev if "ext2_inv_kernel" in d[0]]
     top = sorted(dev, key=lambda d: -d[2])[:8]
     print(json.dumps({
         "part": "trace", "fixture": fixture, "batch": args.batch,
@@ -153,6 +158,11 @@ def main():
         "poseidon_permute_count": sum(c for _, c, _ in poseidon),
         "bridge_permute12_ms": sum(t for _, _, t in bridge) / 1e3,
         "bridge_permute12_count": sum(c for _, c, _ in bridge),
+        "field_kernels": {name: {"count": sum(c for _, c, _ in ds),
+                                 "ms": sum(t for _, _, t in ds) / 1e3}
+                          for name, ds in field.items()},
+        "ext2_inv_ms": sum(t for _, _, t in inverse) / 1e3,
+        "ext2_inv_count": sum(c for _, c, _ in inverse),
         "top_kernels_ms": [[k[:60], c, t / 1e3] for k, c, t in top]}))
 
 
