@@ -81,10 +81,17 @@ needs one CUDA card (built for Hopper, sm_90a), `nvcc`, and no network. It
      permutations of one lane, counted), the digest equal to the same chain
      run on the CPU with the plain permutation; make_batch_verifier on 16
      proofs;
- 10. runs the NTT on the card: coset_lde (rate 3, shift 7) of the prover's
-     three degree-2^13 shapes ([1080 | 160 | 128, 2^13] -> 2^16 points a
-     row), rows checked against the numpy oracle, intt(ntt(x)) == x, and
-     ntt_4step on the one-rank world equal to ntt;
+ 10. holds the NTT kernels of csrc/ntt.cu (ntt_tile, ntt_stride: one or two
+     launches for each ntt, intt, coset_fft, coset_ifft and coset_lde)
+     word for word against the plain versions on the card and on the CPU,
+     all five functions at 2 to 2^17 points on 1 and 7 rows and at 1,080
+     rows of 2^13, edge words in the input, launches counted a call; checks
+     coset_lde (rate 3, shift 7) of the prover's three degree-2^13 shapes
+     ([1080 | 160 | 128, 2^13] -> 2^16 points a row) against the numpy
+     oracle, intt(ntt(x)) == x, and ntt_4step on the one-rank world equal to
+     ntt; times every transform shape the provers make (each kernel alone
+     and the transform) beside the bounds, the launch floor and the plain
+     version's time, and the widest LDE's peak bytes;
  11. turns proof 0 of the zk20 and of the wrapped fixture into plonky2's
      bytes and JSON and back, verifies the decoded proofs on the card (a
      flipped opening rejected), and checks that bytes decoded with the other
@@ -102,7 +109,8 @@ needs one CUDA card (built for Hopper, sm_90a), `nvcc`, and no network. It
      max_lanes=32 equal, proof by proof, two proves of 32 from the same
      generators (the quotient's PoseidonGate constraints in one
      poseidon_gate_eval launch, the inverses in gl_inv and ext2_inv
-     launches; the field kernels' launches pinned, PROVE_FIELD_LAUNCHES);
+     launches; the field kernels' launches pinned, PROVE_FIELD_LAUNCHES,
+     and the NTT kernels', one or two a transform);
      2 signals proved with the kernel,
      with the plain permutation on the card and on the CPU (a spawned
      process beside the card's work) give equal proofs,
@@ -122,7 +130,8 @@ needs one CUDA card (built for Hopper, sm_90a), `nvcc`, and no network. It
      to sem_wrapped16.npz's, the fixture's first 16 zk20 proofs wrapped in
      one prove_batch (stage ms, proofs a second, peak bytes, launches by
      lane count of the bridge, Poseidon and witness.cu's kernels: one
-     ext2_arith a generator, one poseidon_gate_eval), every
+     ext2_arith a generator, one poseidon_gate_eval; the NTT kernels' one
+     or two a transform), every
      wrapped proof equal to the fixture's array by array, all accepted by
      the batched verifier on the card and a corrupted lane rejected, a child
      with a flipped opening refused with WitnessConflict;
@@ -173,6 +182,7 @@ from stark_verifier_tpu_torch.ops import field_kernel as FK
 from stark_verifier_tpu_torch.ops import poseidon_bn254_kernel as bk
 from stark_verifier_tpu_torch.ops import poseidon_gl as pg
 from stark_verifier_tpu_torch.ops import ntt, ntt_np
+from stark_verifier_tpu_torch.ops import ntt_kernel as NK
 from stark_verifier_tpu_torch.ops import poseidon_kernel as pk
 from stark_verifier_tpu_torch.parallel import batch_verify as PB
 from stark_verifier_tpu_torch.parallel.mesh import make_mesh
@@ -375,9 +385,16 @@ KERNEL_FILES = {
     "gl_mul_add": ("stark_verifier_tpu_torch/ops/csrc/field.cu", "native/svt_poseidon.c:339"),
     "gl_mul_small": ("stark_verifier_tpu_torch/ops/csrc/field.cu",
                      "stark_verifier_tpu/ops/gl64_np.py:154"),
+    # the NTT plane: the JAX package's host C NTT and coset LDE (its prover's
+    # default LDE backend; its XLA transform, ops/ntt_jax.py, has no Pallas
+    # call). The two kernels together replace both functions: ntt_tile
+    # svt_coset_lde_batch's scaling and zero padding with the bit-reversed
+    # load and the low stages of svt_ntt_batch, ntt_stride its upper stages
+    "ntt_tile": ("stark_verifier_tpu_torch/ops/csrc/ntt.cu", "native/svt_poseidon.c:813"),
+    "ntt_stride": ("stark_verifier_tpu_torch/ops/csrc/ntt.cu", "native/svt_poseidon.c:754"),
 }
 ADDITIONS = {"bridge_permute12", "poseidon_gate_fill", "ext2_reduce_chain", "ext2_arith",
-             "gl_inv", "ext2_inv", "poseidon_gate_eval", *FK.KERNELS}
+             "gl_inv", "ext2_inv", "poseidon_gate_eval", *FK.KERNELS, *NK.KERNELS}
 PERMUTES = {m: functools.partial(pg.permute, mxu=m) for m in (0, 1, 2)}
 
 EDGES = np.array(
@@ -453,6 +470,7 @@ def phase_build(device):
     bk._library(device)
     WK._library(device)
     FK._library(device)
+    NK._library(device)
     seconds = time.time() - t0
     LAUNCH_FLOOR["ms"] = graph_ms(lambda: WK.empty_launch(device), 50)
     emit({"phase": "build", "sources": sorted(cuda_build.SOURCES.values()),
@@ -469,7 +487,7 @@ def phase_build(device):
         check(bool(functions) and all("registers" in f and "spill_stores" in f
                                       for f in functions),
               f"no ptxas report for {name}")
-        if name in WK.KERNELS + FK.KERNELS:
+        if name in WK.KERNELS + FK.KERNELS + NK.KERNELS:
             check(all(f["spill_stores"] == 0 and f["spill_loads"] == 0 for f in functions),
                   f"{name} spills: {functions}")
         emit({"phase": "ptxas", "kernel": name, "source": source,
@@ -695,8 +713,10 @@ ZK20_FIELD_LAUNCHES = {"gl_mul": 3495, "gl_add": 6381, "gl_sub": 1337, "gl_mul_a
 WRAPPED_FIELD_LAUNCHES = {"gl_mul": 3821, "gl_add": 6957, "gl_sub": 1562, "gl_mul_add": 0,
                           "gl_mul_small": 1284}
 # ... and in the prove phase's counted prove_batch of 64 signals (the
-# quotient's gates over the base ring call mul_add)
-PROVE_FIELD_LAUNCHES = {"gl_mul": 991, "gl_add": 906, "gl_sub": 327, "gl_mul_add": 170,
+# quotient's gates over the base ring call mul_add; the NTTs launch their
+# own kernels, ntt_launches(PROVE_NTT_BITS)). tests/test_torch_ntt_kernel.py
+# counts the same prove's calls on the CPU against these.
+PROVE_FIELD_LAUNCHES = {"gl_mul": 794, "gl_add": 728, "gl_sub": 149, "gl_mul_add": 170,
                         "gl_mul_small": 190}
 # a compiled batch's graph holds at most this many nodes (its launches)
 GRAPH_NODES_AT_MOST = {"zk20": 30_000, "wrapped": 35_000}
@@ -960,7 +980,8 @@ def corrupt(batched, lanes):
 
 
 def reset_counts():
-    for counts in (pk.LAUNCHES, probes.LAUNCHES, bk.LAUNCHES, WK.LAUNCHES, FK.LAUNCHES):
+    for counts in (pk.LAUNCHES, probes.LAUNCHES, bk.LAUNCHES, WK.LAUNCHES, FK.LAUNCHES,
+                   NK.LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -1334,7 +1355,7 @@ def graph_nodes(graph):
 def launch_counts():
     """Every kernel's launch count since reset_counts(), the nonzero ones."""
     counts = {**pk.LAUNCHES, **bk.LAUNCHES, **probes.LAUNCHES, **WK.LAUNCHES,
-              **FK.LAUNCHES}
+              **FK.LAUNCHES, **NK.LAUNCHES}
     return {k: c for k, c in counts.items() if c}
 
 
@@ -1611,46 +1632,230 @@ def phase_sharded(device):
 # the prover's coset LDEs at degree 2^13 (tools/bench_lde_backends.py:39-45)
 NTT_SHAPES = [1080, 160, 128]
 NTT_BITS, NTT_RATE, NTT_SHIFT = 13, 3, 7
+NTT_FUNCTIONS = ("ntt", "intt", "coset_fft", "coset_ifft", "coset_lde")
+# held word for word at 2 .. 2^17 points (an aggregation level's LDE), on
+# both sides of the tile size, at 1 and 7 rows; and at 1,080 rows of 2^13
+NTT_CHECK_BITS = range(1, 18)
+NTT_CHECK_ROWS = (1, 7)
+# output bits of every transform of one prove, in call order: the 64-signal
+# prove (degree 2^9, LDE 2^12; tests/test_torch_ntt_kernel.py counts its
+# calls on the CPU) and the wrap of 16 (degree 2^13, LDE 2^16; listed by
+# tools/torch_profile_prover.py): intt and coset_lde of the wires and of
+# the zs and partial products, two coset_ifft and a coset_lde in the
+# quotient, two coset_fft a FRI layer
+PROVE_NTT_BITS = [9, 12, 9, 12, 12, 12, 12, 12, 12, 11, 11, 10, 10, 9, 9, 8, 8]
+WRAP_NTT_BITS = [13, 16, 13, 16, 16, 16, 16, 16, 16, 15, 15, 14, 14, 13, 13, 12, 12, 11, 11,
+                 10, 10, 9, 9, 8, 8]
+# the provers' transforms, timed: (label, function, rows, log2 of the input
+# points, arguments). The first is the widest call; then the 64-signal
+# prove's (135 wires x 64 signals, degree 2^9), the wrap's (135 x 16,
+# degree 2^13) and an aggregation level's FRI commit (a pair, 2^17)
+NTT_TIMED = [
+    ("lde 1080x2^13", "coset_lde", 1080, 13, (NTT_RATE, NTT_SHIFT)),
+    ("lde 160x2^13", "coset_lde", 160, 13, (NTT_RATE, NTT_SHIFT)),
+    ("lde 128x2^13", "coset_lde", 128, 13, (NTT_RATE, NTT_SHIFT)),
+    ("ntt 1080x2^13", "ntt", 1080, 13, ()),
+    ("prove intt", "intt", 135 * 64, 9, ()),
+    ("prove coset_lde", "coset_lde", 135 * 64, 9, (NTT_RATE, NTT_SHIFT)),
+    ("prove coset_ifft", "coset_ifft", 64, 12, (NTT_SHIFT,)),
+    ("prove coset_fft", "coset_fft", 64, 12, (NTT_SHIFT,)),
+    ("wrap intt", "intt", 135 * 16, 13, ()),
+    ("wrap coset_lde", "coset_lde", 135 * 16, 13, (NTT_RATE, NTT_SHIFT)),
+    ("wrap coset_ifft", "coset_ifft", 16, 16, (NTT_SHIFT,)),
+    ("wrap coset_fft", "coset_fft", 16, 16, (NTT_SHIFT,)),
+    ("aggregation coset_fft", "coset_fft", 2, 17, (NTT_SHIFT,)),
+]
+# 32-bit integer instructions, at the Poseidon count's unit costs: a
+# butterfly is one field multiply, one add and one subtraction on any
+# representatives (20 + 9 + 9), on the stages the function needs (an LDE
+# of rate r pairs each word with 0 in its first r stages: copies, no
+# arithmetic); the coset front one multiply an input word;
+# the epilogue a canonicalisation (3) a point for ntt, and for intt two
+# more and a multiply by 1/n (26), for coset_ifft another multiply and
+# canonicalisation (49)
+NTT_BUTTERFLY_INSTR = 20 + 9 + 9
+NTT_EPILOGUE_INSTR = {"ntt": 3, "coset_fft": 3, "coset_lde": 3, "intt": 26, "coset_ifft": 49}
+# the NTT kernels' launches by the path that made them (prove, wrap,
+# aggregation), for the kernels' rows
+NTT_PATH_LAUNCHES: dict = {}
 
 
-def phase_ntt(device):
-    """coset_lde of the three shapes on the card: 8 rows each against the
-    numpy oracle, intt(ntt(x)) == x, timed by CUDA events; ntt_4step on the
-    one-rank world (phase_sharded's) equal to ntt."""
+def ntt_launches(bits_list) -> dict:
+    """The kernels' launches for transforms of these output bits."""
+    return {"ntt_tile": len(bits_list),
+            "ntt_stride": sum(b > NK.TILE_BITS for b in bits_list)}
+
+
+def ntt_bound_ms(name, rows, n_in, n_out, part=None):
+    """(bytes, operations) bounds of one transform, in ms, or of one of its
+    kernels (`part` "ntt_tile" or "ntt_stride"): each input word read once
+    and each output word written once (the tables too: the twiddles, the
+    front's powers, coset_ifft's inverse powers), the butterflies on every
+    point of every stage but those a zero-padded input only copies (the
+    first log2(n_out / n_in): a word paired with 0 comes out as it went
+    in), the front's multiplies and the epilogue."""
+    bits = n_out.bit_length() - 1
+    tb = min(NK.TILE_BITS, bits)
+    copies = NK.copy_stages(n_in, bits, bits)
+    front = name in ("coset_fft", "coset_lde")
+    inv_table = n_out if name == "coset_ifft" else 0
+    epi_ops = n_out * NTT_EPILOGUE_INSTR[name]
+    tile_ops = (n_out // 2 * (tb - min(copies, tb)) * NTT_BUTTERFLY_INSTR
+                + (n_in * 20 if front else 0))
+    stride_ops = n_out // 2 * (bits - max(tb, copies)) * NTT_BUTTERFLY_INSTR
+    if part == "ntt_tile":
+        two = bits > tb
+        words = rows * (n_in + n_out) + (1 << tb) + (n_in if front else 0) + (
+            0 if two else inv_table)
+        ops = rows * (tile_ops + (0 if two else epi_ops))
+    elif part == "ntt_stride":
+        words = rows * 2 * n_out + n_out - (1 << tb) + inv_table
+        ops = rows * (stride_ops + epi_ops)
+    else:
+        words = rows * (n_in + n_out) + n_out + (n_in if front else 0) + inv_table
+        ops = rows * (tile_ops + stride_ops + epi_ops)
+    return (words * 8 / PEAK_BYTES_PER_S * 1e3, ops / PEAK_INT32_INSTR_PER_S * 1e3)
+
+
+def ntt_words(rng, shape, device):
+    """Full-range words on the card, a quarter of them edge words (0, p - 1,
+    p, p + 1, 2^64 - 1 among them: the transforms take any representative)."""
+    return gl64.from_u64(field_words(rng, shape), device)
+
+
+def ntt_held(x, name, args, cpu_rows=None, where=""):
+    """`name` of x on the card (the kernels) against its plain version on
+    the card and on the CPU (the first `cpu_rows` rows, all where None),
+    word for word; the launches it made checked. Returns the kernel's
+    output."""
+    before = dict(NK.LAUNCHES)
+    got = getattr(ntt, name)(x, *args)
+    n_out = got.shape[-1]
+    made = {k: NK.LAUNCHES[k] - before[k] for k in NK.KERNELS}
+    check(made == ntt_launches([n_out.bit_length() - 1]),
+          f"{name} {where}: launched {made}")
+    plain = getattr(ntt, name + "_plain")
+    check(torch.equal(got, plain(x, *args)),
+          f"{name} {where} differs from its plain version on the card")
+    xs = x if cpu_rows is None else x[:cpu_rows]
+    check(torch.equal(got[:xs.shape[0]].cpu(), plain(xs.cpu(), *args)),
+          f"{name} {where} differs from its plain version on the CPU")
+    return got
+
+
+def phase_ntt(device, rows):
+    """The NTT kernels (csrc/ntt.cu) word for word against the plain
+    versions on the card and on the CPU: all five functions at 2 .. 2^17
+    points, 1 and 7 rows, 1,080 rows at 2^13 (edge words, non-canonical
+    ones among them, in every position); coset_lde of the three 2^13 shapes
+    against the numpy oracle (8 rows), intt(ntt(x)) == x, ntt_4step on a
+    world of one rank equal to ntt. Then timed at the provers' shapes
+    (device time from a CUDA graph, each kernel alone and the transform;
+    the transform's CUDA events over 3 calls too, `call_ms`), beside the
+    bounds, the launch floor, the plain version's time and the peak bytes
+    of the widest LDE. The tile sizes' times: tools/torch_ntt_alternatives.py."""
     rng = np.random.default_rng(SEED + 3)
-    n = 1 << NTT_BITS
-    out_n = n << NTT_RATE
-    by_shape = {}
-    x = None
-    for rows in NTT_SHAPES:
-        del x
+    checked = 0
+    # ---- 1. every function at 2 .. 2^17 points, 1 and 7 rows
+    for bits in NTT_CHECK_BITS:
+        n = 1 << bits
+        for r in NTT_CHECK_ROWS:
+            x = ntt_words(rng, (r, n), device)
+            calls = [(name, ()) for name in ("ntt", "intt")] + [
+                (name, (NTT_SHIFT,)) for name in ("coset_fft", "coset_ifft")]
+            calls += [("coset_lde", (rate, NTT_SHIFT)) for rate in (2, 3)
+                      if bits + rate <= NTT_CHECK_BITS[-1]]
+            for name, args in calls:
+                ntt_held(x, name, args, where=f"[{r}, 2^{bits}] {args}")
+                checked += 1
+    # a strided operand (the FRI fold's coefficients) read in place
+    x = ntt_words(rng, (64, 4096, 2), device)[:, :, 1]
+    ntt_held(x, "coset_fft", (NTT_SHIFT,), where="strided [64, 2^12]")
+    # ---- 2. 1,080 rows at 2^13, the CPU on the first 8
+    x = ntt_words(rng, (NTT_SHAPES[0], 1 << NTT_BITS), device)
+    for name, args in [("ntt", ()), ("intt", ()), ("coset_fft", (NTT_SHIFT,)),
+                       ("coset_ifft", (NTT_SHIFT,)), ("coset_lde", (NTT_RATE, NTT_SHIFT))]:
+        ntt_held(x, name, args, cpu_rows=8, where=f"[{NTT_SHAPES[0]}, 2^{NTT_BITS}]")
+        checked += 1
         torch.cuda.empty_cache()
-        x_np = rng.integers(0, gl64.P, size=(rows, n), dtype=np.uint64)
+    del x
+    # ---- 3. the oracle, the inverse, the four-step transform
+    for r in NTT_SHAPES:
+        x_np = rng.integers(0, gl64.P, size=(r, 1 << NTT_BITS), dtype=np.uint64)
         x = gl64.from_u64(x_np, device)
         lde = ntt.coset_lde(x, NTT_RATE, NTT_SHIFT)
-        torch.cuda.synchronize()
-        check(tuple(lde.shape) == (rows, out_n), f"coset_lde shape {tuple(lde.shape)}")
+        check(tuple(lde.shape) == (r, (1 << NTT_BITS) << NTT_RATE),
+              f"coset_lde shape {tuple(lde.shape)}")
         want = ntt_np.coset_lde(x_np[:8], NTT_RATE, NTT_SHIFT)
         check(np.array_equal(gl64.to_u64(lde[:8]), want),
-              f"coset_lde [{rows}, 2^{NTT_BITS}] differs from the numpy oracle")
+              f"coset_lde [{r}, 2^{NTT_BITS}] differs from the numpy oracle")
         del lde
-        check(torch.equal(ntt.intt(ntt.ntt(x)), x), f"intt(ntt(x)) != x at {rows} rows")
-        torch.cuda.reset_peak_memory_stats()
-        ms = cuda_ms(lambda: ntt.coset_lde(x, NTT_RATE, NTT_SHIFT), 3)
-        ntt_ms = cuda_ms(lambda: ntt.ntt(x), 3)
-        by_shape[f"{rows}x2^{NTT_BITS}"] = {
-            "coset_lde_ms": ms, "points_per_s": rows * out_n / (ms * 1e-3),
-            "output_bytes": rows * out_n * 8, "ntt_ms": ntt_ms,
-            "ntt_points_per_s": rows * n / (ntt_ms * 1e-3),
-            "peak_device_bytes": torch.cuda.max_memory_allocated()}
+        check(torch.equal(ntt.intt(ntt.ntt(x)), x), f"intt(ntt(x)) != x at {r} rows")
+    if not torch.distributed.is_initialized():       # --only ntt: a world of one
+        store = Path(tempfile.mkdtemp()) / "store"
+        check(init_distributed(f"file://{store}", 1, 0), "init_distributed returned False")
     mesh = make_mesh(axis="data")
     four = ntt.ntt_4step(x, mesh)
     check(torch.equal(four, ntt.ntt(x)), "ntt_4step on one rank differs from ntt")
     four_ms = cuda_ms(lambda: ntt.ntt_4step(x, mesh), 3)
-    emit({"phase": "ntt", "rate_bits": NTT_RATE, "shift": NTT_SHIFT,
-          "checked_rows": 8, "equal_to_numpy": True, "inverse_exact": True,
-          "by_shape": by_shape, "ntt_4step": {"world": 1, "shape": list(x.shape),
-                                              "equal_to_ntt": True, "ms": four_ms}})
+    del x, four
+    torch.cuda.empty_cache()
+
+    # ---- 4. timed at the provers' shapes
+    by_call = {}
+    for label, name, r, bits, args in NTT_TIMED:
+        x = ntt_words(rng, (r, 1 << bits), device)
+        kw = getattr(ntt, name + "_kernel_args")(x, *args)
+        n_out = kw.get("n_out", 1 << bits)
+        reps = 5 if r * n_out >= 1 << 24 else 20
+        if label == NTT_TIMED[0][0]:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            out = getattr(ntt, name)(x, *args)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            del out
+        plain = getattr(ntt, name + "_plain")
+        _, plain_ms = timed_plain(lambda: plain(x, *args))
+        _, plain_ms = timed_plain(lambda: plain(x, *args))     # warm
+        t_bytes, t_ops = ntt_bound_ms(name, r, 1 << bits, n_out)
+        at = {"function": name, "rows": r, "points_in": 1 << bits, "points_out": n_out,
+              "ms": graph_ms(lambda: getattr(ntt, name)(x, *args), reps),
+              "call_ms": cuda_ms(lambda: getattr(ntt, name)(x, *args), 3),
+              "plain_ms": plain_ms, "bound_bytes_ms": t_bytes, "bound_operations_ms": t_ops,
+              **least_time(t_bytes, t_ops)}
+        at["share_of_bound"] = at["bound_ms"] / at["ms"]
+        # each kernel alone
+        _, launches = NK.plan(x, **kw)
+        for kname, launch in launches:
+            kb, ko = ntt_bound_ms(name, r, 1 << bits, n_out, part=kname)
+            at[kname] = {"ms": graph_ms(launch, reps), "bound_bytes_ms": kb,
+                         "bound_operations_ms": ko, **least_time(kb, ko)}
+        if label == NTT_TIMED[0][0]:
+            at.update(peak_device_bytes=peak - base, output_bytes=r * n_out * 8,
+                      points_per_s=r * n_out / (at["ms"] * 1e-3))
+        by_call[label] = at
+        del x, kw
+        torch.cuda.empty_cache()
+
+    # ---- the kernels' rows: the widest call
+    top = by_call[NTT_TIMED[0][0]]
+    for kname in NK.KERNELS:
+        k = top[kname]
+        rows[kname] = kernel_row(
+            kname, k["ms"], top["plain_ms"], k["bound_bytes_ms"], k["bound_operations_ms"],
+            call=NTT_TIMED[0][0], tile_bits=NK.TILE_BITS, transform_ms=top["ms"],
+            plain_ms_is="the plain version's whole transform (both kernels' stages)",
+            library_ms_is="none: no PyTorch call computes a Goldilocks NTT")
+    emit({"phase": "ntt", "rate_bits": NTT_RATE, "shift": NTT_SHIFT, "checks": checked,
+          "check_bits": [NTT_CHECK_BITS[0], NTT_CHECK_BITS[-1]], "check_rows": NTT_CHECK_ROWS,
+          "equal_to_plain_on_card_and_cpu": True, "equal_to_numpy": True,
+          "inverse_exact": True, "tile_bits": NK.TILE_BITS, "by_call": by_call,
+          "launches_per_prove": ntt_launches(PROVE_NTT_BITS),
+          "launches_per_wrap": ntt_launches(WRAP_NTT_BITS),
+          "ntt_4step": {"world": 1, "shape": [NTT_SHAPES[-1], 1 << NTT_BITS],
+                        "equal_to_ntt": True, "ms": four_ms}})
 
 
 def phase_codec(device):
@@ -1864,6 +2069,9 @@ def phase_prove(device):
     prove_fk = FIELD_PATH_LAUNCHES["prove"] = dict(FK.LAUNCHES)
     check(prove_fk == PROVE_FIELD_LAUNCHES,
           f"prove: field launches {prove_fk}, expected {PROVE_FIELD_LAUNCHES}")
+    prove_nk = NTT_PATH_LAUNCHES["prove"] = dict(NK.LAUNCHES)
+    check(prove_nk == ntt_launches(PROVE_NTT_BITS),
+          f"prove: NTT launches {prove_nk}, expected {ntt_launches(PROVE_NTT_BITS)}")
     launches = {k: lanes.count(k) for k in sorted(set(lanes))}
     torch.cuda.reset_peak_memory_stats()
     stages = {}
@@ -1949,6 +2157,7 @@ def phase_prove(device):
           "prove_s": prove_s, "proofs_per_s": PROVE_BATCH / prove_s,
           "stage_ms": stages, "launches": len(lanes), "launches_by_lanes": launches,
           "witness_cu_launches": prove_wk, "field_launches": prove_fk,
+          "ntt_launches": prove_nk,
           "peak_device_bytes": peak, "accepted": int(ok.sum()), "rejected_lane": 5,
           "equal_kernel_plain_cpu": True, "vk_equal_to_cpu": True,
           "grind_witnesses": scanned, "kernels_by_lanes": kernel_times})
@@ -2184,14 +2393,18 @@ def c_plane_kernels(device):
         ext2_inv[lanes] = timed_kernel(lambda: WK.ext2_inv(a), plain_ms,
                                        lane_bound_ms(lanes, EXT2_INV_BYTES_PER_LANE,
                                                      EXT2_INV_INT32_INSTR_PER_LANE))
-    # a bound at every width: the Fermat chain's dependent multiplies
-    # (latency, where the bounds above count throughput)
-    path = critical_path_bound(device, "ext2_inv")
-    for at in ext2_inv.values():
-        at["critical_path"] = path
-        if path is not None:
-            larger = max(at["bound_ms"], path["ms"])
-            at.update(larger_bound_ms=larger, share_of_larger_bound=larger / at["ms"])
+    # a bound at every width: the addition chain's dependent multiplies
+    # (latency, where the bounds above count throughput), for both inverses
+    for kernel, by_lanes in (("gl_inv", gl_inv), ("ext2_inv", ext2_inv)):
+        path = critical_path_bound(device, kernel)
+        for at in by_lanes.values():
+            at["critical_path"] = path
+            if path is not None:
+                larger = max(at["bound_ms"], path["ms"])
+                by = ("latency" if path["ms"] > at["bound_ms"] else "bytes"
+                      if at["bound_bytes_ms"] >= at["bound_operations_ms"] else "operations")
+                at.update(larger_bound_ms=larger, share_of_larger_bound=larger / at["ms"],
+                          larger_bound_by=by)
     ins = gl64.from_u64(edge_state(rng, 1025), device)
     sw = gl64.from_u64(rng.integers(0, 2, 1025, dtype=np.uint64), device)
     honest = WK.poseidon_gate_fill(ins, sw)
@@ -2258,6 +2471,10 @@ def phase_recursion(device, rows):
     peak = torch.cuda.max_memory_allocated()
     counts = {**pk.LAUNCHES, **bk.LAUNCHES, **WK.LAUNCHES}
     FIELD_PATH_LAUNCHES["wrap"] = dict(FK.LAUNCHES)
+    NTT_PATH_LAUNCHES["wrap"] = dict(NK.LAUNCHES)
+    check(NTT_PATH_LAUNCHES["wrap"] == ntt_launches(WRAP_NTT_BITS),
+          f"wrap: NTT launches {NTT_PATH_LAUNCHES['wrap']}, expected "
+          f"{ntt_launches(WRAP_NTT_BITS)}")
     default = pk.KERNELS[pk._use_mxu()]
     fills = gate_rows(wd, G.PoseidonGate)
     chains = gate_rows(wd, G.ReducingGate, G.ReducingExtensionGate)
@@ -2310,6 +2527,7 @@ def phase_recursion(device, rows):
             "ReducingGate", "ReducingExtensionGate", "ConstantGate", "NoopGate")},
         "prove_s": wrap_s, "proofs_per_s": WRAP_BATCH / wrap_s, "stage_ms": stages,
         "peak_device_bytes": peak, "field_launches": FIELD_PATH_LAUNCHES["wrap"],
+        "ntt_launches": NTT_PATH_LAUNCHES["wrap"],
         "launches_by_lanes": {
             "bridge_permute12": {n: bridge_lanes.count(n) for n in sorted(set(bridge_lanes))},
             default: {n: poseidon_lanes.count(n) for n in sorted(set(poseidon_lanes))},
@@ -2376,6 +2594,7 @@ def phase_recursion(device, rows):
         st.update(built)
     agg_counts = {**pk.LAUNCHES, **bk.LAUNCHES, **WK.LAUNCHES}
     FIELD_PATH_LAUNCHES["aggregation"] = dict(FK.LAUNCHES)
+    NTT_PATH_LAUNCHES["aggregation"] = dict(NK.LAUNCHES)
     agg_launches = {**WK.LAUNCHES, default: agg_counts[default]}
     agg_fills = sum(st["gate_rows"]["PoseidonGate"] for st in stats)
     agg_chains = sum(st["gate_rows"].get(g, 0) for st in stats
@@ -2406,6 +2625,7 @@ def phase_recursion(device, rows):
                           "levels": stats, "seconds": agg_s,
                           "launches": agg_launches,
                           "field_launches": FIELD_PATH_LAUNCHES["aggregation"],
+                          "ntt_launches": NTT_PATH_LAUNCHES["aggregation"],
                           "prover_poseidon_launches_by_lanes": {
                               n: agg_lanes.count(n) for n in sorted(set(agg_lanes))},
                           "public_inputs": int(agg.proof.public_inputs.shape[0])}
@@ -2461,9 +2681,11 @@ def phase_recursion(device, rows):
                                   ("ext2_inv", ext2_inv, WRAP_BATCH),
                                   ("poseidon_gate_eval", evals, f"{WRAP_BATCH}x{1 << 16}")):
         at = by_lanes[lanes]
+        larger = {k: at[k] for k in ("critical_path", "larger_bound_ms",
+                                     "share_of_larger_bound", "larger_bound_by") if k in at}
         rows[name] = kernel_row(name, at["ms"], at["plain_ms"], at["bound_bytes_ms"],
                                 at["bound_operations_ms"], lanes=lanes, by_lanes=by_lanes,
-                                **others[name])
+                                **others[name], **larger)
         rows[name]["launches"] = counts[name]
     emit({"phase": "recursion", **out,
           **{name: rows[name] for name in WK.KERNELS}})
@@ -2489,7 +2711,7 @@ def main():
     name, smi_line = phase_device()
     rows, seconds = {}, {}
     args = {"build": (device,), "per_proof": (device,), "sharded": (device,),
-            "ntt": (device,), "codec": (device,), "prove": (device,)}
+            "codec": (device,), "prove": (device,)}
     for phase in ("build",) + PHASES:
         if only is not None and phase not in only + ["build"]:
             continue
@@ -2510,9 +2732,16 @@ def main():
     for fname in FK.KERNELS:
         path = "prove" if fname == "gl_mul_add" else "zk20_batch"
         rows[fname].update(launches=FIELD_PATH_LAUNCHES[path][fname], launches_path=path)
+    # the NTT kernels' rows: a prove's launches (the wrap's where the
+    # 64-signal prove's transforms all fit one tile); every path's beside them
+    for kname in NK.KERNELS:
+        path = "prove" if NTT_PATH_LAUNCHES["prove"][kname] else "wrap"
+        rows[kname].update(launches=NTT_PATH_LAUNCHES[path][kname], launches_path=path,
+                           launches_by_path={p: c[kname] for p, c in NTT_PATH_LAUNCHES.items()})
     check(all(rows[n]["launches"] > 0 for n in KERNEL_FILES),
           f"a kernel no path launched: {[n for n in KERNEL_FILES if not rows[n]['launches']]}")
     emit({"phase": "field_launches_by_path", **FIELD_PATH_LAUNCHES})
+    emit({"phase": "ntt_launches_by_path", **NTT_PATH_LAUNCHES})
     keys = ("name", "route", "source", "replaces", "addition", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launch_floor_ms", "least_by")

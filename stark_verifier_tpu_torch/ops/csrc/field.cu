@@ -58,15 +58,6 @@ struct FieldGeom {
     long long stride[3][FIELD_MAX_RANK];         // operands a, b, c
 };
 
-// gl64.sub: a - b; a borrow past 0 folds as -EPS, and that fold can borrow
-// once more (when a - b wrapped to below EPS).
-__device__ __forceinline__ u64 sub_gl(u64 a, u64 b) {
-    const u64 d1 = a - b;
-    const bool b1 = a < b;
-    const u64 d2 = d1 - (b1 ? EPS : 0ull);
-    return d2 - ((b1 && d1 < EPS) ? EPS : 0ull);
-}
-
 template <int OP>
 __device__ __forceinline__ u64 field_op(u64 x, u64 y, u64 z, u64 k) {
     if (OP == OP_MUL) return mul_gl(x, y);

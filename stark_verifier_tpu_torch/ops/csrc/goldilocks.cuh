@@ -1,6 +1,7 @@
 // Goldilocks field arithmetic (p = 2^64 - 2^32 + 1) and the Poseidon round
-// pieces that every Poseidon kernel of this package shares: the 128-bit fold,
-// multiply, add on any representative, the x^7 s-box and the canonical form.
+// pieces that every kernel of this package shares: the 128-bit fold,
+// multiply, add and subtract on any representative, the x^7 s-box and the
+// canonical form.
 // Each kernel keeps its round constants in a table of its own library.
 #pragma once
 #include <cstdint>
@@ -44,6 +45,16 @@ __device__ __forceinline__ u64 add_gl(u64 a, u64 b) {
     u64 s = a + b;
     u64 s2 = s + ((s < a) ? EPS : 0ull);
     return s2 + ((s2 < s) ? EPS : 0ull);
+}
+
+// gl64.sub: a - b; a borrow past 0 folds as -EPS, and that fold can borrow
+// once more (when a - b wrapped to below EPS). The plain version's words,
+// which the field plane (field.cu) and the NTT (ntt.cu) both give.
+__device__ __forceinline__ u64 sub_gl(u64 a, u64 b) {
+    const u64 d1 = a - b;
+    const bool b1 = a < b;
+    const u64 d2 = d1 - (b1 ? EPS : 0ull);
+    return d2 - ((b1 && d1 < EPS) ? EPS : 0ull);
 }
 
 __device__ __forceinline__ u64 sbox7(u64 x) {

@@ -32,7 +32,8 @@ SOURCES = {"poseidon_gl": "poseidon_gl.cu",
            "probes": "probes.cu",
            "poseidon_bn254": "poseidon_bn254.cu",
            "witness": "witness.cu",
-           "field": "field.cu"}
+           "field": "field.cu",
+           "ntt": "ntt.cu"}
 
 # -Xptxas -v makes the compiler report each kernel's registers and spills
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -116,7 +116,7 @@ def launch_args(*operands) -> tuple:
 
 # ---------------------------------------------------------- the schedule
 def _sub_ints(x: int, y: int) -> int:
-    """field.cu sub_gl: the wrap below 0 folded as -EPS, which can wrap
+    """goldilocks.cuh sub_gl: the wrap below 0 folded as -EPS, which can wrap
     once more."""
     from .poseidon_kernel import _EPS, _U64
 

@@ -2,7 +2,11 @@
 the device of the input.
 
 `ntt` is the local batched transform: batch axes lead, the transform axis is
-last, each stage one vectorised butterfly over the whole tensor. `ntt_4step`
+last. On a CUDA tensor `ntt`, `intt`, `coset_fft`, `coset_ifft` and
+`coset_lde` each launch ntt_tile, and ntt_stride above 2^TILE_BITS points
+(ops/ntt_kernel.py, csrc/ntt.cu), or raise; on a CPU tensor they run their
+`*_plain` versions, each stage one vectorised butterfly over the whole
+tensor. Both give the same words at every stage boundary. `ntt_4step`
 splits the transform axis over the ranks of a mesh: a column DFT across
 ranks between two `all_to_all` exchanges, a twiddle scaling, a local row
 NTT, and a third exchange back to natural order. Outputs are canonical and
@@ -15,6 +19,7 @@ import torch
 import torch.distributed as dist
 
 from . import gl64
+from . import ntt_kernel as NK
 from . import ntt_np
 from ..utils.bits import log2_strict, reverse_index_bits_perm
 
@@ -44,51 +49,117 @@ def _powers(base: int, n: int, device):
                    lambda: gl64.from_u64(ntt_np.powers(base, n), device))
 
 
-def ntt(x: torch.Tensor) -> torch.Tensor:
-    """Batched NTT along the last axis: [..., n] coefficients -> [..., n]
-    evaluations over H in natural order; any representatives in, canonical
-    out."""
+def _on_card(x: torch.Tensor) -> bool:
+    """False for a CPU tensor (the plain versions); True for any other,
+    whose launch runs the kernels or raises."""
+    return not x.is_cpu
+
+
+def ntt_stages_plain(x: torch.Tensor, stages: int) -> torch.Tensor:
+    """The bit-reversed input after DIT stages 0 .. stages-1, raw words:
+    the plain stage loop, which the kernels' passes are held against."""
     n = x.shape[-1]
-    bits = log2_strict(n)
     lead = tuple(x.shape[:-1])
     v = torch.index_select(x, -1, _bitrev(n, x.device))
-    for s, tw in enumerate(_stage_twiddles(bits, x.device)):
+    for s, tw in enumerate(_stage_twiddles(log2_strict(n), x.device)[:stages]):
         m = 1 << s
         v = v.reshape(lead + (n // (2 * m), 2, m))
         a = v[..., 0, :]
         b = gl64.mul(v[..., 1, :], tw)
         v = torch.stack([gl64.add(a, b), gl64.sub(a, b)], dim=-2)
-    return gl64.canonical(v.reshape(lead + (n,)))
+    return v.reshape(lead + (n,))
 
 
-def intt(x: torch.Tensor) -> torch.Tensor:
+def ntt_plain(x: torch.Tensor) -> torch.Tensor:
+    return gl64.canonical(ntt_stages_plain(x, log2_strict(x.shape[-1])))
+
+
+def intt_plain(x: torch.Tensor) -> torch.Tensor:
     n = x.shape[-1]
-    c = ntt(x)
+    c = ntt_plain(x)
     idx = _cached(("reverse", n, str(x.device)), lambda: torch.from_numpy(
         np.concatenate([[0], np.arange(n - 1, 0, -1)]).astype(np.int64)).to(x.device))
     c = torch.index_select(c, -1, idx)
     return gl64.canonical(gl64.mul(c, gl64.const(pow(n, P - 2, P), device=x.device)))
 
 
+def coset_fft_plain(x: torch.Tensor, shift: int) -> torch.Tensor:
+    return ntt_plain(gl64.mul(x, _powers(shift, x.shape[-1], x.device)))
+
+
+def coset_ifft_plain(x: torch.Tensor, shift: int) -> torch.Tensor:
+    inv_powers = _powers(pow(shift, P - 2, P), x.shape[-1], x.device)
+    return gl64.canonical(gl64.mul(intt_plain(x), inv_powers))
+
+
+def coset_lde_plain(x: torch.Tensor, rate_bits: int, shift: int) -> torch.Tensor:
+    n = x.shape[-1]
+    padded = torch.zeros(tuple(x.shape[:-1]) + (n << rate_bits,), dtype=x.dtype,
+                         device=x.device)
+    padded[..., :n] = x
+    return coset_fft_plain(padded, shift)
+
+
+# ntt_kernel.plan's arguments for each transform on the card: the front's
+# powers, the output length, the epilogue and its scalings
+def ntt_kernel_args(x: torch.Tensor) -> dict:
+    return {}
+
+
+def intt_kernel_args(x: torch.Tensor) -> dict:
+    return {"epilogue": NK.INVERSE, "n_inv": pow(x.shape[-1], P - 2, P)}
+
+
+def coset_fft_kernel_args(x: torch.Tensor, shift: int) -> dict:
+    return {"powers": _powers(shift, x.shape[-1], x.device)}
+
+
+def coset_ifft_kernel_args(x: torch.Tensor, shift: int) -> dict:
+    n = x.shape[-1]
+    return {"epilogue": NK.INVERSE_COSET, "n_inv": pow(n, P - 2, P),
+            "inv_powers": _powers(pow(shift, P - 2, P), n, x.device)}
+
+
+def coset_lde_kernel_args(x: torch.Tensor, rate_bits: int, shift: int) -> dict:
+    n = x.shape[-1]
+    return {"n_out": n << rate_bits, "powers": _powers(shift, n, x.device)}
+
+
+def ntt(x: torch.Tensor) -> torch.Tensor:
+    """Batched NTT along the last axis: [..., n] coefficients -> [..., n]
+    evaluations over H in natural order; any representatives in, canonical
+    out."""
+    if not _on_card(x):
+        return ntt_plain(x)
+    return NK.transform(x, **ntt_kernel_args(x))
+
+
+def intt(x: torch.Tensor) -> torch.Tensor:
+    if not _on_card(x):
+        return intt_plain(x)
+    return NK.transform(x, **intt_kernel_args(x))
+
+
 def coset_fft(x: torch.Tensor, shift: int) -> torch.Tensor:
     """Evaluate p(shift * x) over H, i.e. p over the coset shift * H."""
-    return ntt(gl64.mul(x, _powers(shift, x.shape[-1], x.device)))
+    if not _on_card(x):
+        return coset_fft_plain(x, shift)
+    return NK.transform(x, **coset_fft_kernel_args(x, shift))
 
 
 def coset_ifft(x: torch.Tensor, shift: int) -> torch.Tensor:
     """The coefficients of p from its values over the coset shift * H: the
     inverse NTT, then coefficient i times shift^-i."""
-    inv_powers = _powers(pow(shift, P - 2, P), x.shape[-1], x.device)
-    return gl64.canonical(gl64.mul(intt(x), inv_powers))
+    if not _on_card(x):
+        return coset_ifft_plain(x, shift)
+    return NK.transform(x, **coset_ifft_kernel_args(x, shift))
 
 
 def coset_lde(x: torch.Tensor, rate_bits: int, shift: int) -> torch.Tensor:
     """Zero-pad the coefficients by 2^rate_bits, evaluate over shift * H'."""
-    n = x.shape[-1]
-    padded = torch.zeros(tuple(x.shape[:-1]) + (n << rate_bits,), dtype=x.dtype,
-                         device=x.device)
-    padded[..., :n] = x
-    return coset_fft(padded, shift)
+    if not _on_card(x):
+        return coset_lde_plain(x, rate_bits, shift)
+    return NK.transform(x, **coset_lde_kernel_args(x, rate_bits, shift))
 
 
 # ------------------------------------------------------------- distributed

@@ -2,7 +2,7 @@
 """Where the time of the PyTorch/CUDA port's prover goes, on one GPU.
 
     python3 tools/torch_profile_prover.py [--bits 20] [--batch 64] [--reps 3]
-                                          [--no-trace]
+                                          [--no-trace] [--no-wrap]
 
 Builds an access set of 2^bits random keys on the card (twice: the first
 build pays the allocator's first use), then proves `batch` distinct
@@ -15,7 +15,17 @@ times through `prove_batch`, and
     DEEP, FRI commit, proof-of-work grind, queries);
   * traces one whole prove with torch.profiler and sums the device time by
     kernel: device kernels a prove, device busy ms, the idle share of the
-    untraced prove time, and the Poseidon kernel's share.
+    untraced prove time, and the Poseidon kernel's share;
+  * records every call of ops/ntt.py's five transforms in one prove (by
+    stage; a call made inside another counts with it), then replays each
+    call alone: its device kernels (counted by torch.profiler, which on
+    that card now and then reports none for a call), the launches the
+    package's kernel wrappers counted, and its ms (CUDA events, mean of 3
+    after a warm-up), summed by stage beside the stage's ms, which gives
+    the NTT's share of each stage;
+  * unless --no-wrap, the same stage times and NTT accounting for a wrap:
+    the first 16 proofs of fixtures/sem_zk20b64.npz wrapped by the bn254
+    wrapper circuit (degree 2^13) in one prove_batch.
 
 Prints one JSON line per part. Needs a CUDA device; there is no CPU mode.
 """
@@ -34,10 +44,15 @@ sys.path.insert(0, str(REPO))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from stark_verifier_tpu_torch.ops import gl64  # noqa: E402
+from stark_verifier_tpu_torch.core.types import load_proofs  # noqa: E402
+from stark_verifier_tpu_torch.ops import gl64, ntt  # noqa: E402
 from stark_verifier_tpu_torch.ops import poseidon_kernel as pk  # noqa: E402
 from stark_verifier_tpu_torch.prover import prove as PV  # noqa: E402
 from stark_verifier_tpu_torch.semaphore import access_set as AS  # noqa: E402
+from stark_verifier_tpu_torch.semaphore import recursion as SREC  # noqa: E402
+
+NTT_FUNCTIONS = ("ntt", "intt", "coset_fft", "coset_ifft", "coset_lde")
+WRAP_BATCH = 16
 
 
 def access_set(sks_dev):
@@ -48,6 +63,131 @@ def access_set(sks_dev):
     return aset, (time.perf_counter() - t0) * 1e3
 
 
+def cuda_ms(fn, reps):
+    """Mean device time of `fn` over `reps` calls, by CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def record_ntt_calls(prove):
+    """Every outermost call of ntt.py's five transforms during `prove()`,
+    as (stage, function, arguments cloned); the stage is the last one
+    prove_batch's stage marker named."""
+    calls, depth, stage = [], [0], [None]
+    originals = {name: getattr(ntt, name) for name in NTT_FUNCTIONS}
+    marker = PV._Stages.__call__
+
+    def mark(self, name=None):
+        stage[0] = name
+        return marker(self, name)
+
+    def wrap(name, fn):
+        def inner(x, *args):
+            if depth[0] == 0:
+                calls.append((stage[0], name, x.clone(), args))
+            depth[0] += 1
+            try:
+                return fn(x, *args)
+            finally:
+                depth[0] -= 1
+        return inner
+
+    PV._Stages.__call__ = mark
+    for name, fn in originals.items():
+        setattr(ntt, name, wrap(name, fn))
+    try:
+        prove()
+        torch.cuda.synchronize()
+    finally:
+        PV._Stages.__call__ = marker
+        for name, fn in originals.items():
+            setattr(ntt, name, fn)
+    return calls
+
+
+def counted_launches() -> int:
+    """The launches the package's kernel wrappers have counted so far."""
+    import importlib
+
+    total = 0
+    for name in ("field_kernel", "ntt_kernel", "poseidon_kernel", "witness_kernel"):
+        try:
+            mod = importlib.import_module(f"stark_verifier_tpu_torch.ops.{name}")
+        except ImportError:          # a tree without that module
+            continue
+        total += sum(mod.LAUNCHES.values())
+    return total
+
+
+def ntt_accounting(calls, stage_ms):
+    """Each recorded call replayed alone: device kernels (torch.profiler),
+    counted launches and ms (CUDA events), summed by stage and beside each
+    stage's ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    by_stage, by_call = {}, []
+    for stage, name, x, args in calls:
+        fn = getattr(ntt, name)
+        fn(x, *args)
+        torch.cuda.synchronize()
+        before = counted_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn(x, *args)
+            torch.cuda.synchronize()
+        counted = counted_launches() - before
+        kernels = sum(e.count for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA)
+        ms = cuda_ms(lambda: fn(x, *args), 3)
+        by_call.append([stage, name, list(x.shape), list(args), kernels, counted, ms])
+        at = by_stage.setdefault(stage, {"calls": 0, "device_kernels": 0,
+                                         "counted_launches": 0, "ntt_ms": 0.0})
+        at["calls"] += 1
+        at["device_kernels"] += kernels
+        at["counted_launches"] += counted
+        at["ntt_ms"] += ms
+    for stage, at in by_stage.items():
+        total = stage_ms.get(stage)
+        at["stage_ms"] = total
+        at["ntt_share"] = at["ntt_ms"] / total if total else None
+    return by_stage, by_call
+
+
+def profile_wrap(reps):
+    """The bn254 wrap of WRAP_BATCH zk20 proofs: stage ms (median of
+    `reps`), and the NTT's accounting of one prove."""
+    proofs, common, vk = load_proofs(REPO / "fixtures" / "sem_zk20b64.npz")
+    t0 = time.perf_counter()
+    wrap = SREC.build_wrapper_circuit(common, hasher="bn254")  # device="cuda"
+    build_s = time.perf_counter() - t0
+
+    def prove(stage_ms=None):
+        return wrap.prove(proofs[:WRAP_BATCH], vk, stage_ms=stage_ms)
+
+    prove()  # warm-up
+    runs = []
+    for _ in range(reps):
+        stages = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prove(stages)
+        runs.append(((time.perf_counter() - t0) * 1e3, stages))
+    med = {k: float(np.median([r[1][k] for r in runs])) for k in runs[0][1]}
+    print(json.dumps({"part": "wrap_stages", "batch": WRAP_BATCH,
+                      "degree_bits": wrap.data.common.degree_bits, "build_s": build_s,
+                      "ms_median": med,
+                      "ms_total": float(np.median([r[0] for r in runs]))}))
+    by_stage, by_call = ntt_accounting(record_ntt_calls(lambda: prove({})), med)
+    print(json.dumps({"part": "wrap_ntt", "by_stage": by_stage, "calls": by_call}))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--bits", type=int, default=20, help="log2 of the set's size")
@@ -56,6 +196,8 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--no-trace", action="store_true",
                     help="skip the torch.profiler pass")
+    ap.add_argument("--no-wrap", action="store_true",
+                    help="skip the wrap's stage times and NTT accounting")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("no CUDA device: this tool measures the GPU only")
@@ -99,6 +241,10 @@ def main():
                       "ms_median": med, "ms_total": total,
                       "proofs_per_s": args.batch / (total * 1e-3),
                       "ms_all": [r[0] for r in runs]}))
+    by_stage, by_call = ntt_accounting(record_ntt_calls(lambda: prove({})), med)
+    print(json.dumps({"part": "ntt", "by_stage": by_stage, "calls": by_call}))
+    if not args.no_wrap:
+        profile_wrap(args.reps)
 
     if args.no_trace:
         return
