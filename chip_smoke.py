@@ -81,11 +81,15 @@ needs one CUDA card (built for Hopper, sm_90a), `nvcc`, and no network. It
      permutations of one lane, counted), the digest equal to the same chain
      run on the CPU with the plain permutation; make_batch_verifier on 16
      proofs;
- 10. holds the NTT kernels of csrc/ntt.cu (ntt_tile, ntt_stride: one or two
-     launches for each ntt, intt, coset_fft, coset_ifft and coset_lde)
-     word for word against the plain versions on the card and on the CPU,
-     all five functions at 2 to 2^17 points on 1 and 7 rows and at 1,080
-     rows of 2^13, edge words in the input, launches counted a call; checks
+ 10. holds the NTT kernels of csrc/ntt.cu (ntt_tile, ntt_stride: one
+     launch for each ntt, intt, coset_fft, coset_ifft and coset_lde up to
+     2^12 points, two up to 2^17, one more a stage range above) word for
+     word against the plain versions on the card and on the CPU, all five
+     functions at 2 to 2^17 points on 1 and 7 rows, at 2^18 on one row and
+     at 1,080 rows of 2^13, ntt and intt at 2^19 to 2^25 points on one row
+     (against the card's plain version; the CPU's at 2^23 for ntt;
+     intt(ntt(x)) == x), edge words in the input, launches counted a call
+     against the geometry's; prints ntt_stride's ptxas line; checks
      coset_lde (rate 3, shift 7) of the prover's three degree-2^13 shapes
      ([1080 | 160 | 128, 2^13] -> 2^16 points a row) against the numpy
      oracle, intt(ntt(x)) == x, and ntt_4step on the one-rank world equal to
@@ -631,6 +635,30 @@ def phase_field_kernels(device, rows):
                     checked += 1
         del forms
         torch.cuda.empty_cache()
+    # ---- 8 dims that no merge joins (a transposed view against size-1
+    # dims): `fit` copies what keeps them apart, one launch a call
+    z = gl64.from_u64(field_words(rng, (3, 4, 3, 4, 3, 4, 3, 8)), device)[..., ::2]
+    z = z.permute(7, 6, 5, 4, 3, 2, 1, 0)
+    w = gl64.from_u64(field_words(rng, (4, 1, 4, 1, 4, 1, 4, 1)), device)
+    k = gl64.from_u64(field_words(rng, ()), device)
+    ops = {"gl_mul": (z, w), "gl_add": (w, z), "gl_sub": (z, w), "gl_mul_add": (z, w, k)}
+    for name in FK.KERNELS:
+        args = (z,) if name == "gl_mul_small" else ops[name]
+        check(FK._geometry(args)[1] is None, f"{name}: rank-8 operands merged")
+        kernel = (lambda: FK.mul_small(z, 7)) if name == "gl_mul_small" else (
+            lambda: FIELD_WRAPPERS[name](*args))
+        plain = (lambda a: gl64.mul_small_plain(a[0], 7)) if name == "gl_mul_small" else (
+            lambda a: FIELD_PLAIN[name](*a))
+        before = FK.LAUNCHES[name]
+        got = kernel()
+        check(FK.LAUNCHES[name] - before == 1, f"{name} rank 8: {FK.LAUNCHES[name] - before} "
+              f"launches")
+        check(got.shape == z.shape and torch.equal(got, plain(args)),
+              f"{name} rank 8 differs from its plain version on the card")
+        check(torch.equal(got.cpu(), plain([t.cpu() for t in args])),
+              f"{name} rank 8 differs from its plain version on the CPU")
+        checked += 1
+    del z, w, k
 
     # ---- timed, the equal form: device time from a CUDA graph of 50
     # launches, beside the bounds; the plain version's one call
@@ -685,7 +713,8 @@ def phase_field_kernels(device, rows):
             sass_an_element=None if sass_ops is None else sass_ops[name]["by_opcode"],
             hand_count_an_element=FIELD_INT32_INSTR_PER_ELEMENT[name])
     emit({"phase": "field_kernels", "sizes": FIELD_SIZES,
-          "forms": ["equal", "broadcast", "0-dim", "strided", "neg (null operand)"],
+          "forms": ["equal", "broadcast", "0-dim", "strided", "neg (null operand)",
+                    "rank 8 (one launch through fit)"],
           "checks": checked, "equal_to_plain_on_card_and_cpu": True,
           "host_us_a_call": host_us,
           **{name: rows[name] for name in FK.KERNELS}})
@@ -1634,9 +1663,15 @@ NTT_SHAPES = [1080, 160, 128]
 NTT_BITS, NTT_RATE, NTT_SHIFT = 13, 3, 7
 NTT_FUNCTIONS = ("ntt", "intt", "coset_fft", "coset_ifft", "coset_lde")
 # held word for word at 2 .. 2^17 points (an aggregation level's LDE), on
-# both sides of the tile size, at 1 and 7 rows; and at 1,080 rows of 2^13
+# both sides of the tile size, at 1 and 7 rows; and at 1,080 rows of 2^13;
+# on one row, all five at 2^18 (three launches) and ntt and intt at 2^19 ..
+# 2^25 (2^25 points: 256 MB, four launches), against the card's plain
+# version; the CPU's too at 2^18 and, for ntt, at 2^23 (the first size of
+# four launches: 17 s a call; at 2^25 a call with the CPU's took 98 s)
 NTT_CHECK_BITS = range(1, 18)
 NTT_CHECK_ROWS = (1, 7)
+NTT_WIDE_BITS = range(18, 26)
+NTT_WIDE_CPU_BITS = 23
 # output bits of every transform of one prove, in call order: the 64-signal
 # prove (degree 2^9, LDE 2^12; tests/test_torch_ntt_kernel.py counts its
 # calls on the CPU) and the wrap of 16 (degree 2^13, LDE 2^16; listed by
@@ -1681,19 +1716,22 @@ NTT_PATH_LAUNCHES: dict = {}
 
 
 def ntt_launches(bits_list) -> dict:
-    """The kernels' launches for transforms of these output bits."""
+    """The kernels' launches for transforms of these output bits, as
+    ntt_kernel.geometry decomposes them (the count a transform does not
+    depend on its rows)."""
     return {"ntt_tile": len(bits_list),
-            "ntt_stride": sum(b > NK.TILE_BITS for b in bits_list)}
+            "ntt_stride": sum(len(NK.geometry(b, 1)["stride"]) for b in bits_list)}
 
 
 def ntt_bound_ms(name, rows, n_in, n_out, part=None):
     """(bytes, operations) bounds of one transform, in ms, or of one of its
-    kernels (`part` "ntt_tile" or "ntt_stride"): each input word read once
-    and each output word written once (the tables too: the twiddles, the
-    front's powers, coset_ifft's inverse powers), the butterflies on every
-    point of every stage but those a zero-padded input only copies (the
-    first log2(n_out / n_in): a word paired with 0 comes out as it went
-    in), the front's multiplies and the epilogue."""
+    kernels (`part` "ntt_tile" or "ntt_stride", all its launches): each
+    input word read once and each output word written once, each
+    launch's (the tables too: the twiddles, the front's powers, coset_ifft's
+    inverse powers), the butterflies on every point of every stage but
+    those a zero-padded input only copies (the first log2(n_out / n_in): a
+    word paired with 0 comes out as it went in), the front's multiplies and
+    the epilogue."""
     bits = n_out.bit_length() - 1
     tb = min(NK.TILE_BITS, bits)
     copies = NK.copy_stages(n_in, bits, bits)
@@ -1709,7 +1747,8 @@ def ntt_bound_ms(name, rows, n_in, n_out, part=None):
             0 if two else inv_table)
         ops = rows * (tile_ops + (0 if two else epi_ops))
     elif part == "ntt_stride":
-        words = rows * 2 * n_out + n_out - (1 << tb) + inv_table
+        passes = len(NK.geometry(bits, rows)["stride"])
+        words = passes * rows * 2 * n_out + n_out - (1 << tb) + inv_table
         ops = rows * (stride_ops + epi_ops)
     else:
         words = rows * (n_in + n_out) + n_out + (n_in if front else 0) + inv_table
@@ -1725,9 +1764,9 @@ def ntt_words(rng, shape, device):
 
 def ntt_held(x, name, args, cpu_rows=None, where=""):
     """`name` of x on the card (the kernels) against its plain version on
-    the card and on the CPU (the first `cpu_rows` rows, all where None),
-    word for word; the launches it made checked. Returns the kernel's
-    output."""
+    the card and on the CPU (the first `cpu_rows` rows, all where None, none
+    where 0), word for word; the launches it made checked against
+    `ntt_launches`. Returns the kernel's output."""
     before = dict(NK.LAUNCHES)
     got = getattr(ntt, name)(x, *args)
     n_out = got.shape[-1]
@@ -1738,16 +1777,19 @@ def ntt_held(x, name, args, cpu_rows=None, where=""):
     check(torch.equal(got, plain(x, *args)),
           f"{name} {where} differs from its plain version on the card")
     xs = x if cpu_rows is None else x[:cpu_rows]
-    check(torch.equal(got[:xs.shape[0]].cpu(), plain(xs.cpu(), *args)),
-          f"{name} {where} differs from its plain version on the CPU")
+    if xs.shape[0]:
+        check(torch.equal(got[:xs.shape[0]].cpu(), plain(xs.cpu(), *args)),
+              f"{name} {where} differs from its plain version on the CPU")
     return got
 
 
 def phase_ntt(device, rows):
     """The NTT kernels (csrc/ntt.cu) word for word against the plain
     versions on the card and on the CPU: all five functions at 2 .. 2^17
-    points, 1 and 7 rows, 1,080 rows at 2^13 (edge words, non-canonical
-    ones among them, in every position); coset_lde of the three 2^13 shapes
+    points, 1 and 7 rows, 1,080 rows at 2^13, one row at 2^18; ntt and intt
+    at 2^19 .. 2^25 on one row (the CPU at 2^23 for ntt), intt(ntt(x)) ==
+    x (edge words, non-canonical ones among them, in every position);
+    ntt_stride's ptxas line; coset_lde of the three 2^13 shapes
     against the numpy oracle (8 rows), intt(ntt(x)) == x, ntt_4step on a
     world of one rank equal to ntt. Then timed at the provers' shapes
     (device time from a CUDA graph, each kernel alone and the transform;
@@ -1771,6 +1813,30 @@ def phase_ntt(device, rows):
     # a strided operand (the FRI fold's coefficients) read in place
     x = ntt_words(rng, (64, 4096, 2), device)[:, :, 1]
     ntt_held(x, "coset_fft", (NTT_SHIFT,), where="strided [64, 2^12]")
+    # ---- one row above 2^17 points: three launches and more
+    wide = {}
+    for bits in NTT_WIDE_BITS:
+        x = ntt_words(rng, (1, 1 << bits), device)
+        calls = [("ntt", ()), ("intt", ())] if bits > NTT_WIDE_BITS[0] else [
+            ("ntt", ()), ("intt", ()), ("coset_fft", (NTT_SHIFT,)),
+            ("coset_ifft", (NTT_SHIFT,)), ("coset_lde", (2, NTT_SHIFT)),
+            ("coset_lde", (3, NTT_SHIFT))]
+        for name, args in calls:
+            # the CPU's plain version at 2^18 for all, at 2^23 for ntt
+            cpu = bits == NTT_WIDE_BITS[0] or (bits == NTT_WIDE_CPU_BITS and name == "ntt")
+            t0 = time.time()
+            got = ntt_held(x, name, args, cpu_rows=None if cpu else 0,
+                           where=f"[1, 2^{bits}] {args}")
+            checked += 1
+            if name == "ntt":
+                check(torch.equal(ntt.intt(got), gl64.canonical(x)),
+                      f"intt(ntt(x)) != x at 2^{bits}")
+            wide[f"{name}{list(args)} 2^{bits}"] = {
+                "launches": ntt_launches([got.shape[-1].bit_length() - 1]),
+                "cpu_checked": cpu, "seconds": round(time.time() - t0, 2)}
+            del got
+        del x
+        torch.cuda.empty_cache()
     # ---- 2. 1,080 rows at 2^13, the CPU on the first 8
     x = ntt_words(rng, (NTT_SHAPES[0], 1 << NTT_BITS), device)
     for name, args in [("ntt", ()), ("intt", ()), ("coset_fft", (NTT_SHIFT,)),
@@ -1848,8 +1914,12 @@ def phase_ntt(device, rows):
             call=NTT_TIMED[0][0], tile_bits=NK.TILE_BITS, transform_ms=top["ms"],
             plain_ms_is="the plain version's whole transform (both kernels' stages)",
             library_ms_is="none: no PyTorch call computes a Goldilocks NTT")
+    stride_ptxas = cuda_build.ptxas_report("ntt")["ntt_stride_kernel"]
+    check(all(f["spill_stores"] == 0 and f["spill_loads"] == 0 for f in stride_ptxas),
+          f"ntt_stride spills: {stride_ptxas}")
     emit({"phase": "ntt", "rate_bits": NTT_RATE, "shift": NTT_SHIFT, "checks": checked,
           "check_bits": [NTT_CHECK_BITS[0], NTT_CHECK_BITS[-1]], "check_rows": NTT_CHECK_ROWS,
+          "wide_one_row": wide, "ntt_stride_ptxas": stride_ptxas,
           "equal_to_plain_on_card_and_cpu": True, "equal_to_numpy": True,
           "inverse_exact": True, "tile_bits": NK.TILE_BITS, "by_call": by_call,
           "launches_per_prove": ntt_launches(PROVE_NTT_BITS),

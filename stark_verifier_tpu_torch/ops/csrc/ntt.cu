@@ -1,15 +1,17 @@
 // The radix-2 NTT / coset LDE over Goldilocks for NVIDIA Hopper (sm_90a):
 // every ntt, intt, coset_fft, coset_ifft and coset_lde of ops/ntt.py on a
-// CUDA tensor in one launch (n <= 2^t) or two, where the plain version is
-// a bit-reversal gather, three field launches and a stack a stage, and a
-// canonicalisation.
+// CUDA tensor in one launch (n <= 2^t) or a few, where the plain version
+// is a bit-reversal gather, three field launches and a stack a stage, and
+// a canonicalisation.
 //
 //   ntt_tile    the bit-reversal load and stages 0 .. t-1 on tiles of 2^t
 //               contiguous positions, in shared memory; the whole transform
 //               when n <= 2^t
-//   ntt_stride  stages t .. bits-1: the 2^(bits-t) positions of one column
-//               (the same low t bits) are a transform of their own with
-//               stride 2^t; a block takes a run of consecutive columns
+//   ntt_stride  a range of up to NTT_MAX_PASS_STAGES stages above t-1: the
+//               2^L positions 2^s0 apart that the range pairs are a column
+//               transform of their own, one thread's, in registers; one
+//               launch takes stages t .. 16 (2^17 points), a transform of
+//               any larger power of two one launch a range
 //
 // Neither replaces a TPU kernel: the JAX package computes the NTT as host C
 // (svt_ntt_batch, svt_coset_lde_batch, native/svt_poseidon.c:754,813; the
@@ -45,17 +47,21 @@
 // What bounds them: the operations, one field multiply, add and subtract a
 // butterfly (19 integer instructions a point a stage, the LDE's copied
 // stages left out), against 16 bytes a point read and written once a
-// pass. Each pass reads and writes each word once; the twiddles come
-// through L1 and L2.
+// pass. Each pass reads and writes each word once. ntt_tile's twiddles
+// come through L1 and L2; ntt_stride's stay in a thread's registers for
+// all the rows it walks, and its next row's loads are in flight while it
+// computes.
 //
 // Plain C interface (loaded with ctypes): no PyTorch headers, launches on
 // the stream it is given, allocates nothing, returns cudaGetLastError().
 #include "goldilocks.cuh"
 
 #define NTT_TILE_THREADS 512
-#define NTT_STRIDE_THREADS 256
+#define NTT_STRIDE_LOG_THREADS 8
+#define NTT_STRIDE_THREADS (1 << NTT_STRIDE_LOG_THREADS)
 #define NTT_SMEM_WORDS 8192              // 64 KB of dynamic shared memory
 #define NTT_MAX_TILE_BITS 13
+#define NTT_MAX_PASS_STAGES 5            // a column of 2^5 words in registers
 
 enum { EPI_NONE = 0, EPI_FORWARD = 1, EPI_INVERSE = 2, EPI_INVERSE_COSET = 3 };
 
@@ -149,47 +155,84 @@ ntt_tile_kernel(const u64* __restrict__ in, long long in_row_stride, long long i
     }
 }
 
-// One block: 2^log_cols consecutive columns r0 + c of one row, each the
-// Q = 2^(bits-tb) positions q 2^tb + r; stages tb .. bits-1 on them.
+// Stages s0 .. s0 + L - 1 (s0 >= the tile's bits): they pair positions
+// 2^s0 apart and more, so column (h, r), the 2^L positions h 2^(s0+L) +
+// q 2^s0 + r (q < 2^L), is a transform of its own, which one thread holds
+// in registers: no shared memory, no barrier. Neighbouring threads take
+// neighbouring r, so a warp's load or store of word q is 256 contiguous
+// bytes (an inverse's, at (n - p) mod n, too). Stage s0 + s2's twiddle for
+// the pair at q = j < 2^s2 is tw[2^(s0+s2) - 1 + j 2^s0 + r], the plain
+// stage loop's: it depends on neither h nor the row, so a thread walks
+// `rows_a_thread` consecutive rows of its column and the compiler loads
+// the 2^L - 1 twiddles once, before the row loop. The next row's loads are
+// issued before a row's butterflies. The thread reads and writes only its
+// own words, so a pass may run in place.
+// (tools/torch_ntt_alternatives.py measures the designs turned down: one
+// row a thread, the twiddles in an array of registers or in shared memory,
+// no prefetch, the epilogue as a template argument.)
+template <int L>
 __global__ void __launch_bounds__(NTT_STRIDE_THREADS)
 ntt_stride_kernel(const u64* in, u64* out,              // may be one buffer
                   const u64* __restrict__ tw, const u64* __restrict__ inv_powers, u64 n_inv,
-                  int bits, int tb, int log_cols, int epi) {
-    extern __shared__ u64 sm[];
-    const int qbits = bits - tb;
-    const int C = 1 << log_cols;
-    const int words = C << qbits;
-    const long long blocks_a_row = 1ll << (tb - log_cols);
-    const long long row = blockIdx.x / blocks_a_row;
-    const long long r0 = (blockIdx.x % blocks_a_row) << log_cols;
+                  int bits, int s0, unsigned col_blocks, long long rows, int rows_a_thread,
+                  int epi) {
+    constexpr int Q = 1 << L;
     const long long n = 1ll << bits;
-    const u64* src = in + row * n + r0;
-    for (int i = threadIdx.x; i < words; i += NTT_STRIDE_THREADS)
-        sm[i] = src[((long long)(i >> log_cols) << tb) + (i & (C - 1))];
-    __syncthreads();
-    const int half = words >> 1;
-    for (int s2 = 0; s2 < qbits; ++s2) {
-        const int m2 = 1 << s2;
-        const u64* w = tw + ((1ll << (s2 + tb)) - 1) + r0;
-        for (int i = threadIdx.x; i < half; i += NTT_STRIDE_THREADS) {
-            const int c = i & (C - 1);
-            const int b = i >> log_cols;
-            const int j = b & (m2 - 1);
-            const int lo = ((b >> s2) << (s2 + 1)) + j;
-            const int at_lo = (lo << log_cols) + c;
-            const int at_hi = at_lo + (m2 << log_cols);
-            const u64 x = sm[at_lo];
-            const u64 y = mul_gl(sm[at_hi], w[((long long)j << tb) + c]);
-            sm[at_lo] = add_gl(x, y);
-            sm[at_hi] = sub_gl(x, y);
+    const long long c = (long long)(blockIdx.x % col_blocks) * blockDim.x + threadIdx.x;
+    if (c >= (n >> L)) return;
+    const long long step = 1ll << s0;
+    const long long r = c & (step - 1);
+    const long long at = ((c >> s0) << (s0 + L)) + r;    // position of q = 0
+    const long long row0 = (long long)(blockIdx.x / col_blocks) * rows_a_thread;
+    const long long row1 = min(rows, row0 + rows_a_thread);
+    u64 next[Q];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) next[q] = in[row0 * n + at + q * step];
+#pragma unroll 1
+    for (long long row = row0; row < row1; ++row) {
+        u64 v[Q];
+#pragma unroll
+        for (int q = 0; q < Q; ++q) v[q] = next[q];
+        if (row + 1 < row1) {
+#pragma unroll
+            for (int q = 0; q < Q; ++q) next[q] = in[(row + 1) * n + at + q * step];
         }
-        __syncthreads();
-    }
-    for (int i = threadIdx.x; i < words; i += NTT_STRIDE_THREADS) {
-        const long long p = ((long long)(i >> log_cols) << tb) + r0 + (i & (C - 1));
-        ntt_store(out, row, n, p, sm[i], epi, n_inv, inv_powers);
+#pragma unroll
+        for (int s2 = 0; s2 < L; ++s2) {
+            const int m = 1 << s2;
+            const u64* w = tw + (step << s2) - 1 + r;
+#pragma unroll
+            for (int b = 0; b < Q / 2; ++b) {
+                const int j = b & (m - 1);
+                const int lo = ((b >> s2) << (s2 + 1)) + j;
+                const u64 x = v[lo];
+                const u64 y = mul_gl(v[lo + m], w[j * step]);
+                v[lo] = add_gl(x, y);
+                v[lo + m] = sub_gl(x, y);
+            }
+        }
+#pragma unroll
+        for (int q = 0; q < Q; ++q)
+            ntt_store(out, row, n, at + q * step, v[q], epi, n_inv, inv_powers);
     }
 }
+
+typedef void (*stride_launch)(unsigned, int, cudaStream_t, const u64*, u64*, const u64*,
+                              const u64*, u64, int, int, unsigned, long long, int, int);
+
+template <int L>
+static void launch_stride(unsigned blocks, int threads, cudaStream_t stream, const u64* in,
+                          u64* out, const u64* tw, const u64* inv_powers, u64 n_inv, int bits,
+                          int s0, unsigned col_blocks, long long rows, int rows_a_thread,
+                          int epi) {
+    ntt_stride_kernel<L><<<blocks, threads, 0, stream>>>(in, out, tw, inv_powers, n_inv, bits,
+                                                         s0, col_blocks, rows, rows_a_thread,
+                                                         epi);
+}
+
+// by stages - 1
+static const stride_launch STRIDE_LAUNCH[NTT_MAX_PASS_STAGES] = {
+    launch_stride<1>, launch_stride<2>, launch_stride<3>, launch_stride<4>, launch_stride<5>};
 
 static int smem_opt_in(const void* kernel, int bytes) {
     if (bytes <= 48 * 1024) return 0;
@@ -200,6 +243,7 @@ static int smem_opt_in(const void* kernel, int bytes) {
 extern "C" {
 
 int ntt_smem_words() { return NTT_SMEM_WORDS; }
+int ntt_max_pass_stages() { return NTT_MAX_PASS_STAGES; }
 
 // in: a row's words at in + row * in_row_stride + i * in_elem_stride, i <
 // n_in (n_in <= 2^bits; the rest of the row reads 0); out: rows x 2^bits
@@ -230,24 +274,26 @@ int ntt_tile(const void* in, long long in_row_stride, long long in_elem_stride, 
     return (int)cudaGetLastError();
 }
 
-// in, out: rows x 2^bits words (the same buffer for a forward transform, two
-// for an inverse one, whose epilogue stores to other columns); 2^log_cols
-// columns a block.
+// in, out: rows x 2^bits words (the same buffer, or two for an inverse's
+// last pass, whose epilogue stores to other columns); stages s0 .. s0 +
+// stages - 1 (1 <= stages <= NTT_MAX_PASS_STAGES); 2^log_threads threads a
+// block, each column of up to `rows_a_thread` consecutive rows.
 int ntt_stride(const void* in, void* out, const void* tw, const void* inv_powers,
-               unsigned long long n_inv, int bits, int tb, int log_cols, long long rows,
-               int epi, void* stream) {
+               unsigned long long n_inv, int bits, int s0, int stages, int log_threads,
+               int rows_a_thread, long long rows, int epi, void* stream) {
     if (rows <= 0) return 0;
-    if (tb < 1 || tb > NTT_MAX_TILE_BITS || bits <= tb || bits > 2 * tb || log_cols < 0
-        || log_cols > tb || (1 << (bits - tb + log_cols)) > NTT_SMEM_WORDS
-        || epi < EPI_FORWARD || epi > EPI_INVERSE_COSET)
+    if (s0 < 1 || stages < 1 || stages > NTT_MAX_PASS_STAGES || s0 + stages > bits
+        || bits > 62 || log_threads < 5 || log_threads > NTT_STRIDE_LOG_THREADS
+        || rows_a_thread < 1 || epi < EPI_NONE || epi > EPI_INVERSE_COSET)
         return (int)cudaErrorInvalidValue;
-    const long long blocks = rows << (tb - log_cols);
-    const int bytes = 8 << (bits - tb + log_cols);
-    int err = smem_opt_in((const void*)ntt_stride_kernel, bytes);
-    if (err) return err;
-    ntt_stride_kernel<<<(unsigned)blocks, NTT_STRIDE_THREADS, bytes, (cudaStream_t)stream>>>(
-        (const u64*)in, (u64*)out, (const u64*)tw, (const u64*)inv_powers, (u64)n_inv, bits,
-        tb, log_cols, epi);
+    const long long col_blocks = ((1ll << (bits - stages)) + (1ll << log_threads) - 1)
+                                 >> log_threads;
+    const long long blocks = col_blocks * ((rows + rows_a_thread - 1) / rows_a_thread);
+    if (blocks > 0x7fffffffll) return (int)cudaErrorInvalidValue;
+    STRIDE_LAUNCH[stages - 1]((unsigned)blocks, 1 << log_threads, (cudaStream_t)stream,
+                              (const u64*)in, (u64*)out, (const u64*)tw, (const u64*)inv_powers,
+                              (u64)n_inv, bits, s0, (unsigned)col_blocks, rows, rows_a_thread,
+                              epi);
     return (int)cudaGetLastError();
 }
 

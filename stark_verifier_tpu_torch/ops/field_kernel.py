@@ -21,8 +21,11 @@ is expected raise.
 Operands are read where they lie: `launch_args` turns their shapes and
 strides into the kernel's geometry (the broadcast shape collapsed to at
 most MAX_RANK dims, each operand's strides in words, 0 on a broadcast dim),
-so a broadcast or strided operand costs no copy. Equal shapes, contiguous,
-take a short path. An empty output launches nothing.
+so a broadcast or strided operand costs no copy. Where more than MAX_RANK
+dims are left, `fit` first copies the operands that keep them apart
+(contiguous in the broadcast shape), so any rank takes one launch; no path
+of the package makes such operands. Equal shapes, contiguous, take a short
+path. An empty output launches nothing.
 
 `schedule_field_ints` restates one thread's arithmetic on python ints, and
 `launch_args` is a pure function of shapes and strides, so the CPU tests
@@ -57,7 +60,17 @@ def launch_args(*operands) -> tuple:
     outer dim first, in words. Dims of size 1 are dropped and neighbours
     every operand steps through as one are merged; strides of an absent
     operand are 0. Raises ValueError for shapes that do not broadcast or
-    more than MAX_RANK dims after the merge."""
+    more than MAX_RANK dims after the merge (`fit` makes those one dim)."""
+    shape, geom = _geometry(operands)
+    if geom is None:
+        raise ValueError(f"field kernel: more than {MAX_RANK} dims after merging "
+                         f"({_shapes(operands)})")
+    return shape, geom
+
+
+def _geometry(operands) -> tuple:
+    """launch_args' (shape, geom), with geom None for more than MAX_RANK
+    dims after the merge."""
     first = operands[0]
     if first is not None:
         shape = first.shape
@@ -65,7 +78,42 @@ def launch_args(*operands) -> tuple:
             n = first.numel()
             strides = ([1] + _PAD[1:]) * len(operands) + _PAD * (3 - len(operands))
             return shape, [n, 1, n] + _ONES[1:] + strides
-    shapes = [() if t is None else tuple(t.shape) for t in operands]
+    shape, aligned = _broadcast(operands)
+    n = shape.numel()
+    if n == 0:
+        return shape, [0, 1] + _ONES + _PAD * 3
+    dims = _merged(shape, aligned)
+    if len(dims) > MAX_RANK:
+        return shape, None
+    dims.reverse()
+    rank = len(dims)
+    geom = [n, rank] + [size for size, _ in dims] + _ONES[rank:]
+    for j in range(3):
+        geom += ([st[j] for _, st in dims] + [0] * (MAX_RANK - rank)
+                 if j < len(operands) else _PAD)
+    return shape, geom
+
+
+def fit(operands) -> tuple:
+    """The operands as one launch takes them where more than MAX_RANK dims
+    are left after merging: each operand whose own strides keep two dims
+    of the broadcast shape apart made contiguous in that shape
+    (`t.expand(shape).contiguous()`), so that all the dims merge into one;
+    the others (contiguous ones of that shape, 0-dim ones, None) as they
+    are. Raises ValueError for shapes that do not broadcast."""
+    shape, aligned = _broadcast(operands)
+    return tuple(t if t is None or len(_merged(shape, [st])) == 1
+                 else t.expand(shape).contiguous() for t, st in zip(operands, aligned))
+
+
+def _shapes(operands) -> list:
+    return [() if t is None else tuple(t.shape) for t in operands]
+
+
+def _broadcast(operands) -> tuple:
+    """(the broadcast shape, each operand's strides over its dims: 0 where
+    it broadcasts). Raises ValueError for shapes that do not broadcast."""
+    shapes = _shapes(operands)
     nd = max(len(sh) for sh in shapes)
     shape = [1] * nd
     for sh in shapes:
@@ -75,8 +123,6 @@ def launch_args(*operands) -> tuple:
                     raise ValueError(f"field kernel: operands of shapes {shapes} do not "
                                      f"broadcast")
                 shape[d] = size
-    shape = torch.Size(shape)
-    # each operand's strides over the output's dims: 0 where it broadcasts
     aligned = []
     for t, sh in zip(operands, shapes):
         st = [0] * nd
@@ -85,13 +131,15 @@ def launch_args(*operands) -> tuple:
                 if size != 1:
                     st[d] = step
         aligned.append(st)
-    n = 1
-    for s in shape:
-        n *= s
-    if n == 0:
-        return shape, [0, 1] + _ONES + _PAD * 3
-    dims = []                        # [size, strides], innermost first
-    for d in reversed(range(nd)):
+    return torch.Size(shape), aligned
+
+
+def _merged(shape, aligned) -> list:
+    """[size, strides] of the dims left, innermost first: size-1 dims
+    dropped, a dim merged into the next inner one where every operand
+    steps through the two as one."""
+    dims = []
+    for d in reversed(range(len(shape))):
         size = shape[d]
         if size == 1:
             continue
@@ -100,18 +148,7 @@ def launch_args(*operands) -> tuple:
             dims[-1][0] *= size      # steps on from the inner dim: one dim
         else:
             dims.append([size, st])
-    if not dims:
-        dims = [[1, [0] * len(operands)]]
-    if len(dims) > MAX_RANK:
-        raise ValueError(f"field kernel: {len(dims)} dims after merging ({shapes}), "
-                         f"at most {MAX_RANK}")
-    dims.reverse()
-    rank = len(dims)
-    geom = [n, rank] + [size for size, _ in dims] + _ONES[rank:]
-    for j in range(3):
-        geom += ([st[j] for _, st in dims] + [0] * (MAX_RANK - rank)
-                 if j < len(operands) else _PAD)
-    return shape, geom
+    return dims or [[1, [0] * len(aligned)]]
 
 
 # ---------------------------------------------------------- the schedule
@@ -206,10 +243,13 @@ def _device_of(operands) -> str:
 
 def _launch(name: str, operands: tuple, k: int = 0) -> torch.Tensor:
     """One counted launch of kernel `name` over `operands` (checked by
-    `_device_of`, on a CUDA device) on the device's current stream; a CUDA
-    error raises."""
+    `_device_of`, on a CUDA device; through `fit` where they keep more than
+    MAX_RANK dims) on the device's current stream; a CUDA error raises."""
     dev = (operands[0] if operands[0] is not None else operands[1]).device
-    shape, geom = launch_args(*operands)
+    shape, geom = _geometry(operands)
+    if geom is None:            # more than MAX_RANK dims: copy what keeps them apart
+        operands = fit(operands)
+        shape, geom = _geometry(operands)
     out = torch.empty(shape, dtype=torch.int64, device=dev)
     if geom[0]:
         ptrs = [None if t is None else t.data_ptr() for t in operands]

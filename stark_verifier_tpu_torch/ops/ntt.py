@@ -3,10 +3,10 @@ the device of the input.
 
 `ntt` is the local batched transform: batch axes lead, the transform axis is
 last. On a CUDA tensor `ntt`, `intt`, `coset_fft`, `coset_ifft` and
-`coset_lde` each launch ntt_tile, and ntt_stride above 2^TILE_BITS points
-(ops/ntt_kernel.py, csrc/ntt.cu), or raise; on a CPU tensor they run their
-`*_plain` versions, each stage one vectorised butterfly over the whole
-tensor. Both give the same words at every stage boundary. `ntt_4step`
+`coset_lde` each launch ntt_tile, and above 2^TILE_BITS points one
+ntt_stride a range of stages (ops/ntt_kernel.py, csrc/ntt.cu), or raise;
+on a CPU tensor they run their `*_plain` versions, each stage one
+vectorised butterfly over the whole tensor. Both give the same words at every stage boundary. `ntt_4step`
 splits the transform axis over the ranks of a mesh: a column DFT across
 ranks between two `all_to_all` exchanges, a twiddle scaling, a local row
 NTT, and a third exchange back to natural order. Outputs are canonical and

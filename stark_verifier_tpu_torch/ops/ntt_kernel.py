@@ -1,6 +1,8 @@
 """The NTT plane of csrc/ntt.cu: each ntt, intt, coset_fft, coset_ifft and
 coset_lde of ops/ntt.py on a CUDA tensor in one launch of `ntt_tile` (2^bits
-<= 2^TILE_BITS points) or one of `ntt_tile` and one of `ntt_stride` above.
+<= 2^TILE_BITS points), then one of `ntt_stride` for each range of up to
+MAX_PASS_STAGES stages above: one up to 2^17 points, more for any larger
+power of two.
 
 `transform(x, n_out, powers, epilogue, n_inv, inv_powers)` takes int64
 [..., n] (any representatives; rows read in place where the leading dims
@@ -19,10 +21,11 @@ A CUDA tensor launches the kernels or raises; only CPU tensors take the
 plain versions (ops/ntt.py decides).
 
 `geometry(bits, rows, t)` is the launches' decomposition (tiles a block,
-columns a block, grids), `copy_stages` the stages of a zero-padded input
-that ntt_tile makes as copies at its load, and `schedule_ntt` restates
-both passes on int64 tensors with the plain field ops, index for index, so
-the CPU tests hold them against the plain stage loop after each pass.
+the stride passes' stage ranges, threads a block and rows a thread),
+`copy_stages` the stages of a zero-padded input that ntt_tile makes as
+copies at its load, and `schedule_ntt` restates every pass on int64
+tensors with the plain field ops, index for index, so the CPU tests hold
+them against the plain stage loop after each pass.
 """
 from __future__ import annotations
 
@@ -41,7 +44,18 @@ KERNELS = ("ntt_tile", "ntt_stride")
 TILE_BITS = 12
 SMEM_WORDS = 1 << 13          # csrc NTT_SMEM_WORDS: 64 KB a block
 MAX_TILE_BITS = 13            # csrc NTT_MAX_TILE_BITS
-MAX_COLUMN_BITS = 6           # ntt_stride: at most 64 columns a block
+# stages an ntt_stride launch takes at most: a thread's column of 2^5 words
+# in registers (csrc NTT_MAX_PASS_STAGES), so that every transform up to
+# 2^(TILE_BITS + 5) = 2^17 points makes one launch of each kernel
+MAX_PASS_STAGES = 5
+STRIDE_LOG_THREADS = 8        # csrc NTT_STRIDE_LOG_THREADS: 256 threads a block at most
+# ntt_stride: rows a thread walks at most with its column's twiddles in
+# registers, and the threads (about 2,048 on each of the H100's 132 SMs)
+# and blocks (two an SM, at least 32 threads each) a launch makes at least
+# where the rows and columns allow
+STRIDE_ROWS = 8
+FILL_THREADS = 1 << 18
+FILL_BLOCKS = 264
 NONE, FORWARD, INVERSE, INVERSE_COSET = range(4)   # csrc EPI_*
 
 # Kernel launches made by the wrappers since the counts were last set to 0.
@@ -53,14 +67,14 @@ def geometry(bits: int, rows: int, t: int = None) -> dict:
     """The launches of one transform of 2^bits points on `rows` rows with
     tiles of 2^t: `tb` (the tile's bits, min(t, bits)), `log_group` (tiles a
     ntt_tile block, neighbours in rev(k), or rows a block when one tile is
-    a row), `tile_blocks`, and, when bits > tb, `log_cols` (columns a
-    ntt_stride block) and `stride_blocks`. Raises ValueError for bits > 2t,
-    which two passes cannot cover."""
+    a row), `tile_blocks`, and `stride`, one entry an ntt_stride launch:
+    stages `s0` .. `s0 + stages - 1` (the stages above tb cut into
+    ceil((bits - tb) / MAX_PASS_STAGES) ranges, the longer first),
+    `log_threads` (threads a block), `rows_a_thread` and `blocks`; `passes`
+    counts the launches. Takes any bits."""
     t = TILE_BITS if t is None else t
     if not 1 <= t <= MAX_TILE_BITS:
         raise ValueError(f"ntt: tile bits {t} outside 1..{MAX_TILE_BITS}")
-    if bits > 2 * t:
-        raise ValueError(f"ntt: 2^{bits} points need more than two passes of 2^{t}")
     tb = min(t, bits)
     sbits = bits - tb
     room = SMEM_WORDS.bit_length() - 1 - tb
@@ -68,12 +82,22 @@ def geometry(bits: int, rows: int, t: int = None) -> dict:
         log_group = min(room, max(rows - 1, 0).bit_length())
     else:                # tiles of one row, neighbours in rev(k)
         log_group = min(room, sbits)
-    geom = {"bits": bits, "tb": tb, "log_group": log_group,
-            "tile_blocks": -(-(rows << sbits) >> log_group) if rows else 0, "passes": 1}
-    if sbits:
-        log_cols = min(tb, MAX_COLUMN_BITS, SMEM_WORDS.bit_length() - 1 - sbits)
-        geom.update(passes=2, log_cols=log_cols, stride_blocks=rows << (tb - log_cols))
-    return geom
+    count = -(-sbits // MAX_PASS_STAGES)
+    stride, s0 = [], tb
+    for i in range(count):
+        stages = sbits // count + (i < sbits % count)
+        cols = 1 << (bits - stages)             # a thread's column a row
+        rows_a_thread = max(1, min(STRIDE_ROWS, rows, rows * cols // FILL_THREADS))
+        chunks = -(-rows // rows_a_thread)
+        log_threads = max(5, min(STRIDE_LOG_THREADS,
+                                 (cols * chunks // FILL_BLOCKS).bit_length() - 1))
+        stride.append({"s0": s0, "stages": stages, "log_threads": log_threads,
+                       "rows_a_thread": rows_a_thread,
+                       "blocks": -(-cols >> log_threads) * chunks})
+        s0 += stages
+    return {"bits": bits, "tb": tb, "log_group": log_group,
+            "tile_blocks": -(-(rows << sbits) >> log_group) if rows else 0,
+            "stride": stride, "passes": 1 + count}
 
 
 def copy_stages(n_in: int, bits: int, tb: int) -> int:
@@ -141,25 +165,24 @@ def tile_pass(x, n_out: int, tw, t: int, powers=None) -> torch.Tensor:
     return out
 
 
-def stride_pass(v, tw, t: int) -> torch.Tensor:
-    """ntt_stride's stages tb .. bits-1 on [R, n] in position order:
-    column r (positions q 2^tb + r) a transform of its own, butterfly b of
-    stage tb + s2 at lo = (b >> s2) << (s2 + 1) + j (j = b mod 2^s2), its
-    twiddle tw[2^(tb + s2) - 1 + j 2^tb + r]."""
+def stride_pass(v, tw, s0: int, stages: int) -> torch.Tensor:
+    """ntt_stride's stages s0 .. s0 + stages - 1 on [R, n] in position
+    order: column (h, r), the positions h 2^(s0+L) + q 2^s0 + r (L =
+    stages, q < 2^L), a transform of its own; butterfly b of stage s0 + s2
+    at q = lo = (b >> s2) << (s2 + 1) + j (j = b mod 2^s2), its twiddle
+    tw[2^(s0 + s2) - 1 + j 2^s0 + r]."""
     R, n = v.shape
-    bits = n.bit_length() - 1
-    tb = geometry(bits, R, t)["tb"]
-    T, Q = 1 << tb, n >> tb
-    col = v.reshape(R, Q, T).clone()
-    r = torch.arange(T)
-    for s2 in range(bits - tb):
-        m2 = 1 << s2
-        b = torch.arange(Q // 2)
-        j = b & (m2 - 1)
+    L, step = stages, 1 << s0
+    col = v.reshape(R, n >> (s0 + L), 1 << L, step).clone()     # [R, h, q, r]
+    r = torch.arange(step)
+    for s2 in range(L):
+        m = 1 << s2
+        b = torch.arange(1 << (L - 1))
+        j = b & (m - 1)
         lo = ((b >> s2) << (s2 + 1)) + j
-        w = tw[(1 << (s2 + tb)) - 1 + (j[:, None] << tb) + r[None, :]]   # [Q/2, T]
-        a, y = col[:, lo], gl64.mul_plain(col[:, lo + m2], w)
-        col[:, lo], col[:, lo + m2] = gl64.add_plain(a, y), gl64.sub_plain(a, y)
+        w = tw[(step << s2) - 1 + (j[:, None] << s0) + r[None, :]]   # [2^(L-1), 2^s0]
+        a, y = col[:, :, lo], gl64.mul_plain(col[:, :, lo + m], w)
+        col[:, :, lo], col[:, :, lo + m] = gl64.add_plain(a, y), gl64.sub_plain(a, y)
     return col.reshape(R, n)
 
 
@@ -182,14 +205,15 @@ def epilogue_pass(v, epilogue: int, n_inv: int = 1, inv_powers=None) -> torch.Te
 
 def schedule_ntt(x, t: int, n_out: int = None, powers=None, epilogue: int = FORWARD,
                  n_inv: int = 1, inv_powers=None) -> tuple:
-    """Both passes of one transform of int64 rows [R, n_in] as the kernels
+    """Every pass of one transform of int64 rows [R, n_in] as the kernels
     decompose it, on CPU tensors with the plain field ops: (the raw words
     after each pass, in position order; the output)."""
     n_out = x.shape[-1] if n_out is None else n_out
-    tw = gl64.from_u64(twiddles(n_out.bit_length() - 1), "cpu")
+    bits = n_out.bit_length() - 1
+    tw = gl64.from_u64(twiddles(bits), "cpu")
     after = [tile_pass(x, n_out, tw, t, powers)]
-    if geometry(n_out.bit_length() - 1, x.shape[0], t)["passes"] == 2:
-        after.append(stride_pass(after[0], tw, t))
+    for p in geometry(bits, x.shape[0], t)["stride"]:
+        after.append(stride_pass(after[-1], tw, p["s0"], p["stages"]))
     return after, epilogue_pass(after[-1], epilogue, n_inv, inv_powers)
 
 
@@ -202,12 +226,16 @@ def _bind(lib):
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.ntt_tile.argtypes = [p, ll, ll, ll, p, p, p, p, ctypes.c_uint64, i, i, i, ll, i, p]
     lib.ntt_tile.restype = i
-    lib.ntt_stride.argtypes = [p, p, p, p, ctypes.c_uint64, i, i, i, ll, i, p]
+    lib.ntt_stride.argtypes = [p, p, p, p, ctypes.c_uint64, i, i, i, i, i, ll, i, p]
     lib.ntt_stride.restype = i
     lib.ntt_smem_words.restype = i
+    lib.ntt_max_pass_stages.restype = i
     if lib.ntt_smem_words() != SMEM_WORDS:
         raise RuntimeError(f"ntt.cu has {lib.ntt_smem_words()} words of shared memory a "
                            f"block, the wrapper plans for {SMEM_WORDS}")
+    if lib.ntt_max_pass_stages() != MAX_PASS_STAGES:
+        raise RuntimeError(f"ntt.cu takes {lib.ntt_max_pass_stages()} stages a stride "
+                           f"pass, the wrapper plans for {MAX_PASS_STAGES}")
 
 
 def _library(device: torch.device):
@@ -268,7 +296,8 @@ def plan(x: torch.Tensor, n_out: int = None, powers: torch.Tensor = None,
     yet made: (the output, [(kernel name, launch)]), each launch a counted
     call on the device's current stream that raises on a CUDA error.
     `powers` int64 [n] on x's device or None, `inv_powers` int64 [n_out]
-    for INVERSE_COSET; ntt_tile, then ntt_stride when 2^bits > 2^TILE_BITS."""
+    for INVERSE_COSET; ntt_tile, then one ntt_stride a stage range of
+    `geometry`, the epilogue in the last."""
     _device_of(x)
     dev = x.device
     n = x.shape[-1]
@@ -283,10 +312,10 @@ def plan(x: torch.Tensor, n_out: int = None, powers: torch.Tensor = None,
         return out, []
     tw = gl64.table(("ntt_twiddles", bits), dev, lambda: twiddles(bits))
     lib = _library(dev)
-    two = g["passes"] == 2
-    # an inverse's last pass stores to other columns: its first pass writes
-    # a buffer of its own
-    mid = torch.empty_like(out) if two and epilogue != FORWARD else out
+    last = len(g["stride"]) - 1
+    # an inverse's last pass stores to other columns: the passes before it
+    # write a buffer of their own
+    mid = torch.empty_like(out) if last >= 0 and epilogue != FORWARD else out
     pw = None if powers is None else powers.data_ptr()
     ip = None if inv_powers is None else inv_powers.data_ptr()
 
@@ -294,16 +323,22 @@ def plan(x: torch.Tensor, n_out: int = None, powers: torch.Tensor = None,
         with _on(dev):
             err = lib.ntt_tile(xr.data_ptr(), row_stride, elem_stride, n, mid.data_ptr(),
                                tw.data_ptr(), pw, ip, n_inv, bits, g["tb"], g["log_group"],
-                               rows, NONE if two else epilogue, _stream(dev))
+                               rows, NONE if last >= 0 else epilogue, _stream(dev))
         _check(err, "ntt_tile")
 
-    def stride():
-        with _on(dev):
-            err = lib.ntt_stride(mid.data_ptr(), out.data_ptr(), tw.data_ptr(), ip, n_inv,
-                                 bits, g["tb"], g["log_cols"], rows, epilogue, _stream(dev))
-        _check(err, "ntt_stride")
+    def stride(i, p):
+        dst, epi = (out, epilogue) if i == last else (mid, NONE)
 
-    return out, [("ntt_tile", tile)] + ([("ntt_stride", stride)] if two else [])
+        def launch():
+            with _on(dev):
+                err = lib.ntt_stride(mid.data_ptr(), dst.data_ptr(), tw.data_ptr(), ip, n_inv,
+                                     bits, p["s0"], p["stages"], p["log_threads"],
+                                     p["rows_a_thread"], rows, epi, _stream(dev))
+            _check(err, "ntt_stride")
+        return launch
+
+    return out, [("ntt_tile", tile)] + [("ntt_stride", stride(i, p))
+                                        for i, p in enumerate(g["stride"])]
 
 
 def transform(x: torch.Tensor, **kw) -> torch.Tensor:

@@ -193,15 +193,36 @@ def test_launch_args_flat_and_collapsed():
     assert geom[:3] == [512, 1, 512] and geom[2 + FK.MAX_RANK] == 0
 
 
-def test_launch_args_refuse_what_no_kernel_takes():
-    """More dims than MAX_RANK after merging, and shapes that do not
-    broadcast, raise ValueError."""
+def test_launch_args_refuse_what_no_kernel_takes(card):
+    """Shapes that do not broadcast raise ValueError. 8 dims that no merge
+    joins (w's size-1 dims keep z's apart) take one launch all the same:
+    `fit` makes the operands that keep them apart contiguous, and the
+    words are the plain version's."""
+    lib, plain = card
     rng = np.random.default_rng(60)
-    # 8 dims, which w's size-1 dims keep from merging
     z = _t(_words(rng, (2, 3, 2, 3, 2, 3, 2, 6)))[..., ::2]
     w = _t(_words(rng, (2, 1, 2, 1, 2, 1, 2, 1)))
     with pytest.raises(ValueError, match="dims after merging"):
         FK.launch_args(z, w)
+    # z alone steps through its 8 dims as one (stride 2): only w is copied
+    a, b = FK.fit((z, w))
+    assert a is z and b.is_contiguous() and b.shape == z.shape
+    assert FK.launch_args(a, b)[1][:3] == [z.numel(), 1, z.numel()]
+    got = gl64.mul(z, w)
+    assert FK.LAUNCHES["gl_mul"] == 1 and len(lib.calls) == 1
+    assert torch.equal(got, plain["mul_plain"](z, w))
+    # the transposed z keeps its dims apart on its own: it is copied, and
+    # the 0-dim operand, which never blocks a merge, is not
+    rev = tuple(range(7, -1, -1))
+    zt, wt, k = z.permute(rev), w.permute(rev), _t(_words(rng, ()))
+    with pytest.raises(ValueError, match="dims after merging"):
+        FK.launch_args(zt, wt, k)
+    a, b = FK.fit((zt, k))
+    assert b is k and a.is_contiguous()
+    assert torch.equal(gl64.mul_add(zt, wt, k),
+                       plain["add_plain"](plain["mul_plain"](zt, wt), k))
+    assert FK.LAUNCHES["gl_mul_add"] == 1 and len(lib.calls) == 2
+    assert FK.fit((None, z))[0] is None
     with pytest.raises(ValueError, match="do not broadcast"):
         FK.launch_args(_t(_words(rng, (3, 4))), _t(_words(rng, (5,))))
 
@@ -445,20 +466,19 @@ def test_tensor_off_the_cpu_never_takes_the_plain_version(monkeypatch, name):
         calls[name]()
 
 
-@pytest.mark.parametrize("case", ["int32", "python int", "two devices", "too many dims",
+@pytest.mark.parametrize("case", ["int32", "python int", "two devices", "no broadcast",
                                   "k too large"])
 def test_wrappers_refuse_bad_operands(case):
     """Another dtype, a python number in place of a tensor, operands on two
-    devices, more dims than the kernel takes, and mul_small's k at 2^15
-    raise before any launch."""
+    devices, shapes that do not broadcast, and mul_small's k at 2^15 raise
+    before any launch."""
     a = torch.zeros((2, 4), dtype=torch.int64)
     meta = torch.zeros((2, 4), dtype=torch.int64, device="meta")
-    z = torch.zeros((2, 3, 2, 3, 2, 3, 2, 6), dtype=torch.int64, device="meta")[..., ::2]
-    w = torch.zeros((2, 1, 2, 1, 2, 1, 2, 1), dtype=torch.int64, device="meta")
+    five = torch.zeros((5,), dtype=torch.int64, device="meta")
     calls = {"int32": (TypeError, lambda: FK.mul(a, a.int())),
              "python int": (TypeError, lambda: FK.add(meta, 5)),
              "two devices": (ValueError, lambda: gl64.sub(a, meta)),
-             "too many dims": (ValueError, lambda: FK._launch("gl_add", (z, w))),
+             "no broadcast": (ValueError, lambda: FK._launch("gl_add", (meta, five))),
              "k too large": (ValueError, lambda: FK.mul_small(a, 2**15))}
     error, call = calls[case]
     with pytest.raises(error):

@@ -4,22 +4,26 @@ wrappers in ops/ntt_kernel.py and ops/ntt.py, on the CPU.
 The kernels must give the plain versions' own words at every stage
 boundary, so every comparison here is exact:
 
-  * the kernels' schedule (`schedule_ntt`: the tile pass, the stride pass
-    and the epilogue, index for index, with small tiles so that n up to
-    2^10 takes both passes) against the plain stage loop after each pass
-    and at the output, on rows 1, 3 and 7 of edge words (0, p - 1, p,
-    p + 1, 2^64 - 1 among them), and on zero-padded inputs, whose first
-    stages the tile pass makes as copies;
+  * the kernels' schedule (`schedule_ntt`: the tile pass, the stride
+    passes and the epilogue, index for index, with small tiles so that n
+    up to 2^10 takes several passes, and with few stages a stride pass so
+    that n up to 2^12 takes three to eleven) against the plain stage loop
+    after each pass and at the output, on rows 1, 3 and 7 of edge words
+    (0, p - 1, p, p + 1, 2^64 - 1 among them), and on zero-padded inputs,
+    whose first stages the tile pass makes as copies;
   * the same outputs, for ntt, intt, coset_fft, coset_ifft and coset_lde
     (rates 2 and 3, shift 7), against the JAX package's numpy NTT and its
     JAX NTT (n <= 64);
-  * the launch geometry: every tile and every column in exactly one block,
-    within the shared memory a block has;
+  * the launch geometry: every tile and every column of every stride pass
+    in exactly one block (one thread), tiles within the shared memory a
+    block has, the stride passes' stage ranges covering the stages above
+    the tile once each, at any size (2^25 and 2^26 points among them);
   * the dispatch: a tensor off the CPU reaches the launcher (a fake library
     that runs the schedule's passes at the pointers it is given), one launch
-    up to 2^t points and two above, and never a plain version; a failed
-    launch raises; a CPU tensor takes the plain version; 2^bits above
-    2^(2t) raises;
+    up to 2^t points and one more a stage range above, and never a plain
+    version; a failed launch raises; a CPU tensor takes the plain version;
+    a length that is not a power of two, or tiles outside 1..MAX_TILE_BITS,
+    raise;
   * one prove of the Semaphore circuit (2^20 members, B = 2): its
     transforms' sizes, the NTT launches they make and the field launches
     left outside them, against the pins chip_smoke.py checks on the card.
@@ -85,15 +89,50 @@ SCHEDULE_CASES = [(0, 1), (1, 1), (2, 1), (3, 2), (5, 3), (6, 3), (4, 4), (7, 4)
 @pytest.mark.parametrize("rows", [1, 3, 7])
 @pytest.mark.parametrize("bits,t", SCHEDULE_CASES)
 def test_schedule_equals_plain_stage_loop_after_every_pass(bits, t, rows):
-    """The tile pass equals the plain loop's words after stage tb - 1, the
-    stride pass after the last stage, the output ntt_plain's, word for
+    """The tile pass equals the plain loop's words after stage tb - 1, each
+    stride pass after its last stage, the output ntt_plain's, word for
     word."""
     x = _words(np.random.default_rng(100 * bits + 10 * t + rows), (rows, 1 << bits))
     after, out = NK.schedule_ntt(x, t)
-    tb = min(t, bits)
-    assert len(after) == (1 if bits <= t else 2)
-    assert torch.equal(after[0], ntt.ntt_stages_plain(x, tb))
-    assert torch.equal(after[-1], ntt.ntt_stages_plain(x, bits))
+    g = NK.geometry(bits, rows, t)
+    assert len(after) == g["passes"] == (1 if bits <= t else 2)
+    ends = [g["tb"]] + [p["s0"] + p["stages"] for p in g["stride"]]
+    for words, end in zip(after, ends):
+        assert torch.equal(words, ntt.ntt_stages_plain(x, end))
+    assert ends[-1] == bits
+    assert torch.equal(out, ntt.ntt_plain(x))
+
+
+# (log2 n, tile bits, stages a stride pass at most): three passes and more,
+# up to twelve
+MANY_PASS_CASES = [(6, 2, 2), (8, 3, 2), (9, 2, 3), (10, 4, 1), (12, 4, 3), (12, 2, 5),
+                   (11, 3, 2)]
+
+
+@pytest.mark.parametrize("rows", [1, 3])
+@pytest.mark.parametrize("bits,t,most", MANY_PASS_CASES)
+def test_schedule_of_three_passes_and_more_equals_plain_stage_loop(monkeypatch, bits, t, most,
+                                                                   rows):
+    """With MAX_PASS_STAGES set small, the stride passes cut the stages
+    above the tile into ranges of at most that many, the longer first, each
+    starting where the last ended; the words after every pass are the
+    plain loop's at that stage boundary, and the output ntt_plain's."""
+    monkeypatch.setattr(NK, "MAX_PASS_STAGES", most)
+    x = _words(np.random.default_rng(1000 * bits + 10 * t + rows), (rows, 1 << bits))
+    g = NK.geometry(bits, rows, t)
+    stages = [p["stages"] for p in g["stride"]]
+    assert len(stages) == -(-(bits - t) // most) >= 2 and g["passes"] >= 3
+    assert max(stages) <= most and stages == sorted(stages, reverse=True)
+    assert max(stages) - min(stages) <= 1
+    after, out = NK.schedule_ntt(x, t)
+    assert len(after) == g["passes"]
+    end = t
+    assert torch.equal(after[0], ntt.ntt_stages_plain(x, t))
+    for words, p in zip(after[1:], g["stride"]):
+        assert p["s0"] == end
+        end += p["stages"]
+        assert torch.equal(words, ntt.ntt_stages_plain(x, end))
+    assert end == bits
     assert torch.equal(out, ntt.ntt_plain(x))
 
 
@@ -140,8 +179,6 @@ def test_schedule_of_each_function_equals_plain(name, bits, t):
     """Every function's front and epilogue through the schedule, on edge
     words, two passes where 2^t is below the output length."""
     args, plain = SCHEDULE_FUNCTIONS[name]
-    if name.startswith("coset_lde") and bits + args[0] > 2 * t:
-        bits = 2 * t - args[0]
     x = _words(np.random.default_rng(7 * bits + len(name)), (3, 1 << bits))
     assert torch.equal(_schedule(name, x, t, *args), plain(x, *args))
 
@@ -193,38 +230,87 @@ def test_schedule_equals_jax_package_jax(name):
 
 
 # ------------------------------------------------------------ the geometry
+def _stride_columns(bits, rows, p):
+    """[(rows, first positions)] of the columns the threads of one stride
+    pass take, one entry a row of a thread's run, as ntt_stride_kernel
+    divides its grid: block b is column block b mod col_blocks of row
+    chunk b // col_blocks."""
+    L, s0 = p["stages"], p["s0"]
+    threads, cols = 1 << p["log_threads"], 1 << (bits - L)
+    col_blocks = -(-cols // threads)
+    assert p["blocks"] == col_blocks * -(-rows // p["rows_a_thread"])
+    b = np.arange(p["blocks"])[:, None]
+    c = (b % col_blocks) * threads + np.arange(threads)[None, :]
+    row0 = np.broadcast_to((b // col_blocks) * p["rows_a_thread"], c.shape)
+    live = c < cols
+    c, row0 = c[live], row0[live]
+    at = ((c >> s0) << (s0 + L)) + (c & ((1 << s0) - 1))
+    runs = [row0 + i for i in range(p["rows_a_thread"])]
+    return [(r[r < rows], at[r < rows]) for r in runs]
+
+
 @pytest.mark.parametrize("bits,rows,t", [(1, 1, 12), (9, 8640, 12), (12, 64, 12),
                                          (13, 2160, 12), (16, 16, 12), (16, 1080, 11),
-                                         (17, 2, 12), (17, 3, 13), (22, 1, 11), (24, 1, 12)])
+                                         (17, 2, 12), (17, 3, 13), (22, 1, 11), (24, 1, 12),
+                                         (18, 5, 12), (20, 3, 4), (25, 1, 12), (26, 1, 12),
+                                         (13, 300, 12), (13, 129, 12)])
 def test_geometry_covers_every_tile_and_column_once(bits, rows, t):
     """Each ntt_tile block's tiles (2^log_group of them, neighbours in
-    rev(k), or whole rows) and each ntt_stride block's columns: every one
-    exactly once, within SMEM_WORDS, the tiles of a block in one row
-    where a row has several."""
+    rev(k), or whole rows): every one exactly once, within SMEM_WORDS, the
+    tiles of a block in one row where a row has several. The stride passes:
+    stages tb .. bits - 1 once each, at most MAX_PASS_STAGES a launch;
+    every position of every row in exactly one thread's column, a column
+    its 2^L positions 2^s0 apart; 32 to 256 threads a block, at most
+    STRIDE_ROWS rows a thread."""
     g = NK.geometry(bits, rows, t)
     tb, sbits = g["tb"], bits - g["tb"]
     tiles = rows << sbits
     assert g["tile_blocks"] == -(-tiles >> g["log_group"])
     assert (1 << (tb + g["log_group"])) <= NK.SMEM_WORDS
+    assert g["passes"] == 1 + len(g["stride"]) == 1 + -(-sbits // NK.MAX_PASS_STAGES)
     if sbits:
         assert g["log_group"] <= sbits       # a block's tiles lie in one row
-        assert g["passes"] == 2
-        assert (1 << (sbits + g["log_cols"])) <= NK.SMEM_WORDS
-        assert g["stride_blocks"] << g["log_cols"] == rows << tb
-    else:
-        assert g["passes"] == 1
     if g["tile_blocks"] <= 4096:
         seen = np.zeros(tiles, dtype=np.int64)
         for b in range(g["tile_blocks"]):
             u0 = b << g["log_group"]
             seen[u0:min(u0 + (1 << g["log_group"]), tiles)] += 1
         assert (seen == 1).all()
+    end = tb
+    for p in g["stride"]:
+        assert p["s0"] == end and 1 <= p["stages"] <= NK.MAX_PASS_STAGES
+        end += p["stages"]
+        assert 5 <= p["log_threads"] <= NK.STRIDE_LOG_THREADS
+        assert 1 <= p["rows_a_thread"] <= min(NK.STRIDE_ROWS, rows)
+        assert p["blocks"] < 2**31
+        if rows << bits <= 1 << 22:
+            seen = np.zeros((rows, 1 << bits), dtype=np.int8)
+            for r, at in _stride_columns(bits, rows, p):
+                for q in range(1 << p["stages"]):
+                    np.add.at(seen, (r, at + (q << p["s0"])), 1)
+            assert (seen == 1).all()
+    assert end == bits
+    # every provers' transform up to 2^17 points: one stride pass at most
+    if bits <= 17 and t == NK.TILE_BITS:
+        assert g["passes"] == 1 + (bits > t)
 
 
-@pytest.mark.parametrize("bits,t", [(5, 2), (23, 11), (25, 12), (27, 13)])
-def test_more_than_two_passes_raises(bits, t):
-    with pytest.raises(ValueError, match="more than two passes"):
-        NK.geometry(bits, 1, t)
+@pytest.mark.parametrize("bits,t", [(5, 2), (23, 11), (25, 12), (27, 13), (40, 12)])
+def test_beyond_two_passes_the_stride_passes_take_the_rest(bits, t):
+    """Where two passes of 2^t do not cover 2^bits points (ntt_stride took
+    at most t stages before), the stride passes take the rest, a range of
+    at most MAX_PASS_STAGES stages each: no size raises."""
+    assert bits > 2 * t
+    g = NK.geometry(bits, 1, t)
+    assert [p["s0"] for p in g["stride"]][0] == t
+    assert sum(p["stages"] for p in g["stride"]) == bits - t
+    assert len(g["stride"]) == -(-(bits - t) // NK.MAX_PASS_STAGES) == g["passes"] - 1
+
+
+@pytest.mark.parametrize("t", [0, NK.MAX_TILE_BITS + 1])
+def test_tile_bits_outside_range_raise(t):
+    with pytest.raises(ValueError, match="tile bits"):
+        NK.geometry(20, 1, t)
 
 
 # ------------------------------------------------------------ the dispatch
@@ -264,15 +350,19 @@ class _FakeNttLibrary:
         self._store(out, v, epi, n_inv, ip, rows, 1 << bits)
         return 0
 
-    def ntt_stride(self, mid, out, tw, ip, n_inv, bits, tb, lc, rows, epi, stream):
-        self.calls.append(("ntt_stride", mid, out, bits, tb, lc, rows, epi))
+    def ntt_stride(self, mid, out, tw, ip, n_inv, bits, s0, stages, log_threads,
+                   rows_a_thread, rows, epi, stream):
+        self.calls.append(("ntt_stride", mid, out, bits, s0, stages, rows, epi))
         if self.fail:
             return self.fail
-        assert NK.geometry(bits, rows, tb)["log_cols"] == lc
+        p = {"s0": s0, "stages": stages, "log_threads": log_threads,
+             "rows_a_thread": rows_a_thread}
+        assert p.items() <= next(q for q in NK.geometry(bits, rows)["stride"]
+                                 if q["s0"] == s0).items()
         n = 1 << bits
         v = torch.from_numpy(_u64(mid, rows * n).copy()).reshape(rows, n)
-        self._store(out, NK.stride_pass(v, self._tables(tw, bits), tb), epi, n_inv, ip,
-                    rows, n)
+        self._store(out, NK.stride_pass(v, self._tables(tw, bits), s0, stages), epi, n_inv,
+                    ip, rows, n)
         return 0
 
 
@@ -283,8 +373,9 @@ PLAIN = ("ntt_plain", "intt_plain", "coset_fft_plain", "coset_ifft_plain", "cose
 def card(monkeypatch):
     """CPU tensors taken for the card's: ops/ntt.py sends them to the
     launcher, whose device check says "cuda"; the library is the fake, with
-    tiles of 2^3; every plain version raises, except through the returned
-    `plain` (the expected words); the counts start at 0."""
+    tiles of 2^3 and at most 2 stages a stride pass; every plain version
+    raises, except through the returned `plain` (the expected words); the
+    counts start at 0."""
     lib = _FakeNttLibrary()
     armed = [True]
     originals = {name: getattr(ntt, name) for name in PLAIN}
@@ -311,6 +402,7 @@ def card(monkeypatch):
     monkeypatch.setattr(NK, "_stream", lambda device: 0)
     monkeypatch.setattr(NK, "_on", lambda device: nullcontext())
     monkeypatch.setattr(NK, "TILE_BITS", 3)
+    monkeypatch.setattr(NK, "MAX_PASS_STAGES", 2)
     monkeypatch.setattr(NK, "LAUNCHES", dict.fromkeys(NK.KERNELS, 0))
     for name in PLAIN:
         monkeypatch.setattr(ntt, name, refusing(name))
@@ -319,24 +411,34 @@ def card(monkeypatch):
 
 CARD_CALLS = [("ntt", ()), ("intt", ()), ("coset_fft", (SHIFT,)), ("coset_ifft", (SHIFT,)),
               ("coset_lde", (2, SHIFT)), ("coset_lde", (3, SHIFT))]
-# every function at 2^0 .. 2^6 input points whose output two passes of 2^3
-# cover
-CARD_CASES = [(name, args, bits) for name, args in CARD_CALLS for bits in (0, 1, 3, 4, 6)
-              if bits + (args[0] if name == "coset_lde" else 0) <= 6]
+# every function at 2^0 .. 2^8 input points with at most 2^9 output points:
+# one launch, two, three, and four (2^8, 2^9: three stride passes)
+CARD_CASES = [(name, args, bits) for name, args in CARD_CALLS for bits in (0, 1, 3, 4, 6, 8)
+              if bits + (args[0] if name == "coset_lde" else 0) <= 9]
 
 
 @pytest.mark.parametrize("name,args,bits", CARD_CASES, ids=str)
 def test_fake_card_one_or_two_launches_a_transform(card, name, args, bits):
     """Each function on the card: ntt_tile alone up to 2^3 output points,
-    then ntt_stride too; the words the plain version gives; nothing else
+    then one ntt_stride for each range of at most 2 stages above, the
+    epilogue in the last; the words the plain version gives; nothing else
     launched."""
     lib, plain = card
     n_out = (1 << bits) << (args[0] if name == "coset_lde" else 0)
     x = _words(np.random.default_rng(bits + len(name)), (2, 3, 1 << bits))
     got = getattr(ntt, name)(x, *args)
-    two = n_out > 1 << 3
-    assert [c[0] for c in lib.calls] == ["ntt_tile"] + ["ntt_stride"] * two
-    assert NK.LAUNCHES == {"ntt_tile": 1, "ntt_stride": int(two)}
+    strides = -(-max(n_out.bit_length() - 1 - 3, 0) // 2)
+    assert [c[0] for c in lib.calls] == ["ntt_tile"] + ["ntt_stride"] * strides
+    assert NK.LAUNCHES == {"ntt_tile": 1, "ntt_stride": strides}
+    assert [c[-1] for c in lib.calls] == [NK.NONE] * strides + [
+        NK.FORWARD if name in ("ntt", "coset_fft", "coset_lde") else
+        NK.INVERSE if name == "intt" else NK.INVERSE_COSET]
+    if strides:                                 # an inverse's passes: in place on a buffer
+        mids = {c[1] for c in lib.calls[1:]}
+        outs = [c[2] for c in lib.calls[1:]]
+        assert len(mids) == 1 and outs[:-1] == [lib.calls[1][1]] * (strides - 1)
+        assert (outs[-1] == got.data_ptr()) and (
+            (outs[-1] in mids) == (name not in ("intt", "coset_ifft")))
     assert got.shape == (2, 3, n_out) and got.is_contiguous()
     assert torch.equal(got, plain[name + "_plain"](x, *args))
 
@@ -410,15 +512,16 @@ def test_cpu_tensor_takes_the_plain_version(monkeypatch, name, args):
                        getattr(ntt, name + "_plain")(x, *args))
 
 
-def test_launcher_refuses_what_no_kernel_takes(card):
-    """A length that is not a power of two, and more points than two passes
-    of 2^t cover, raise before any launch."""
+def test_launcher_refuses_what_no_kernel_takes(card, monkeypatch):
+    """A length that is not a power of two, and tiles outside
+    1..MAX_TILE_BITS, raise before any launch."""
     lib, _ = card
     with pytest.raises(ValueError, match="power of two"):
         ntt.ntt(torch.zeros((2, 12), dtype=torch.int64))
-    with pytest.raises(ValueError, match="more than two passes"):
+    monkeypatch.setattr(NK, "TILE_BITS", NK.MAX_TILE_BITS + 1)
+    with pytest.raises(ValueError, match="tile bits"):
         ntt.ntt(torch.zeros((1, 1 << 7), dtype=torch.int64))
-    with pytest.raises(ValueError, match="more than two passes"):
+    with pytest.raises(ValueError, match="tile bits"):
         ntt.coset_lde(torch.zeros((1, 1 << 5), dtype=torch.int64), 2, SHIFT)
     assert not lib.calls and not any(NK.LAUNCHES.values())
 
@@ -515,6 +618,6 @@ def test_prove_launches_pinned(monkeypatch):
     for bits, (_, shape, _) in zip(out_bits, calls):
         g = NK.geometry(bits, int(np.prod(shape[:-1])))
         launches["ntt_tile"] += 1
-        launches["ntt_stride"] += g["passes"] == 2
+        launches["ntt_stride"] += len(g["stride"])
     assert launches == cs.ntt_launches(cs.PROVE_NTT_BITS)
     assert launches["ntt_tile"] == len(cs.PROVE_NTT_BITS) == 17
