@@ -143,7 +143,13 @@ needs one CUDA card (built for Hopper, sm_90a), `nvcc`, and no network. It
      and with a forged nullifier; 4 signals aggregated at the reference's
      strength (zero knowledge, two levels of degree 2^14, build and prove
      seconds and stage ms a level), accepted by verify_aggregated on the
-     card and rejected with a flipped nullifier; aggregate_signals_np's
+     card and rejected with a flipped nullifier; its first level proved
+     again in two spawned workers on the card (procs=2, seeded child
+     generators), equal array by array and in launches to proving each
+     chunk in this process from the same children, accepted by the
+     verifier on the card, a flipped child raising RuntimeError, the
+     workers' start-up, rebuild and prove seconds beside the one-batch
+     level's; aggregate_signals_np's
      digest equal to the same tree on the CPU with the plain permutation,
      its attestation rechecked, and rejected with a changed count;
  14. prints one JSON line per phase, the kernels' line, and as the last line
@@ -2507,6 +2513,79 @@ def gate_rows(data, *kinds):
     return sum(1 for g, _ in data.builder.gate_rows if isinstance(g, kinds))
 
 
+# the first aggregation level proved again in spawned workers (one pair
+# each), and in chunks of one pair in this process from the same children
+AGG_PROCS = 2
+AGG_WORKER_SEEDS = (SEED + 15, SEED + 16)   # the witness and the salt rngs
+
+
+def aggregation_workers(level, proofs, inner_vk, one_batch_s):
+    """The level of `proofs` (two pairs) proved (a) with procs=AGG_PROCS,
+    spawned workers on this card, generators seeded AGG_WORKER_SEEDS;
+    (b) a chunk of one pair at a time in this process (max_pairs=1), chunk k
+    from the children (a) gave worker k; beside (c), the one-batch prove of
+    the same level (`one_batch_s`). (a) equals (b) array by array and in
+    its launches (the workers' merged into this process's counters); (a)'s
+    proofs pass the port's verifier on the card; a child with a flipped
+    word makes a worker raise, which comes back as RuntimeError."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()   # the parent's cached blocks, freed for the workers
+    gens = [np.random.default_rng(s) for s in AGG_WORKER_SEEDS]
+    workers = []
+    reset_counts()
+    t0 = time.perf_counter()
+    spawned = SREC.prove_aggregation_level(level, proofs, inner_vk, procs=AGG_PROCS,
+                                           worker_stats=workers, witness_rng=gens[0],
+                                           salt_rng=gens[1])
+    spawned_s = time.perf_counter() - t0
+    spawned_launches = launch_counts()
+    check([w["pairs"] for w in workers] == [(0, 1), (1, 2)],
+          f"aggregation workers: chunks {[w['pairs'] for w in workers]}")
+    children = [np.random.default_rng(s).spawn(AGG_PROCS) for s in AGG_WORKER_SEEDS]
+    here = []
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for k in range(AGG_PROCS):
+        here += SREC.prove_aggregation_level(
+            level, proofs[2 * k:2 * k + 2], inner_vk, max_pairs=1, procs=1,
+            witness_rng=children[0][k], salt_rng=children[1][k])
+    torch.cuda.synchronize()
+    here_s = time.perf_counter() - t0
+    here_launches = launch_counts()
+    check(len(spawned) == len(here) == AGG_PROCS,
+          f"aggregation workers: {len(spawned)} and {len(here)} proofs")
+    for b, (got, want) in enumerate(zip(spawned, here)):
+        diff = proof_arrays_equal(V.proof_to_arrays(want), V.proof_to_arrays(got))
+        check(not diff, f"aggregation workers: proof {b} differs from the chunk proved "
+                        f"here in {diff}")
+    check(spawned_launches == here_launches,
+          f"aggregation workers: launches {spawned_launches}, proved here {here_launches}")
+    F = gl64.Field(level.data.device)
+    ok = [bool(V.verify_proof(F, level.data.common, level.data.vk, p)) for p in spawned]
+    check(all(ok), f"aggregation workers: verify_proof on the card gave {ok}")
+    bad = [copy.deepcopy(p) for p in proofs]
+    bad[1].openings.wires[0, 0] ^= np.uint64(1)
+    t0 = time.perf_counter()
+    try:
+        SREC.prove_aggregation_level(level, bad, inner_vk, procs=AGG_PROCS)
+        fail("aggregation workers: a child with a flipped opening was aggregated")
+    except RuntimeError as e:
+        check("WitnessConflict" in str(e),
+              f"aggregation workers: a flipped child raised {str(e)[-400:]}")
+    failed_s = time.perf_counter() - t0
+    return {"procs": AGG_PROCS, "pairs": len(spawned),
+            "worker_start_s": [w["start_s"] for w in workers],
+            "worker_rebuild_s": [w["rebuild_s"] for w in workers],
+            "worker_prove_s": [w["prove_s"] for w in workers],
+            "worker_result_s": [w["result_s"] for w in workers],
+            "worker_stage_ms": [w["stage_ms"] for w in workers],
+            "spawn_to_result_s": spawned_s,
+            "prove_s": {"workers": spawned_s, "chunks_here": here_s, "one_batch": one_batch_s},
+            "launches": spawned_launches, "equal_to_chunks_here": True,
+            "accepted_on_card": sum(ok), "flipped_child_raised_s": failed_s}
+
+
 def phase_recursion(device, rows):
     """Recursion on the card: the witness kernels against their plain
     versions; the bn254 wrapper of the zk20 circuit rebuilding
@@ -2656,7 +2735,7 @@ def phase_recursion(device, rows):
     agg = SREC.aggregate_signals(
         aset, signals[:RECURSION_SIGNALS], config=cfg, level_stats=stats, _cache=cache,
         witness_rng=np.random.default_rng(SEED + 13),
-        salt_rng=np.random.default_rng(SEED + 14),
+        salt_rng=np.random.default_rng(SEED + 14), procs=1,
         permute=recorder(agg_lanes), inner_permute=recorder(agg_lanes))
     torch.cuda.synchronize()
     agg_s = time.perf_counter() - t0
@@ -2691,6 +2770,10 @@ def phase_recursion(device, rows):
     check(not SREC.verify_aggregated(agg, aset.merkle_root),
           "aggregation: a flipped nullifier was accepted")
     agg.nullifiers = nulls
+    first = aset.circuit()
+    workers = aggregation_workers(cache[id(first.common)],
+                                  [sig.proof for sig in signals[:RECURSION_SIGNALS]],
+                                  first.vk, stats[0]["prove_s"])
     out["aggregation"] = {"signals": RECURSION_SIGNALS, "zero_knowledge": True,
                           "levels": stats, "seconds": agg_s,
                           "launches": agg_launches,
@@ -2698,7 +2781,8 @@ def phase_recursion(device, rows):
                           "ntt_launches": NTT_PATH_LAUNCHES["aggregation"],
                           "prover_poseidon_launches_by_lanes": {
                               n: agg_lanes.count(n) for n in sorted(set(agg_lanes))},
-                          "public_inputs": int(agg.proof.public_inputs.shape[0])}
+                          "public_inputs": int(agg.proof.public_inputs.shape[0]),
+                          "workers": workers}
 
     # ---- (d) digest aggregation and the attestation
     t0 = time.perf_counter()

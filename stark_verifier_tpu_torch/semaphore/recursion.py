@@ -8,24 +8,33 @@ as public inputs (recursion.rs:25-185). `aggregate_proofs` folds N proofs
 level by level; where the reference fans each level out over rayon threads
 (recursion.rs:214-227), all pairs of a level are proved as one batch on the
 circuit's device: the whole level is one `prove_batch` call, or, with
-`max_pairs`, one a chunk of pairs.
+`max_pairs`, one a chunk of pairs, or, with `procs`, one a worker process
+(spawned, each with its own CUDA context on the circuit's card, the level's
+circuit rebuilt there from its inner CommonData and config).
 
 The random draws of a proof (blinding rows, salts) come from the
 `witness_rng` / `salt_rng` generators when they are given, as
-`prove_batch` takes them; each level draws on from the same two.
+`prove_batch` takes them; each level draws on from the same two (in
+worker processes, from children of them: see prove_aggregation_level).
 """
 from __future__ import annotations
 
 import collections
+import multiprocessing
+import multiprocessing.connection
 import os
+import pickle
 import time
+import traceback
 from dataclasses import dataclass
 from typing import Dict, List, Tuple
 
 import numpy as np
+import torch
 
 from ..core.types import CircuitConfig, CommonData, FriConfig, Proof, VerifierOnlyData
-from ..ops import gl64
+from ..ops import field_kernel, gl64, ntt_kernel, poseidon_bn254_kernel, poseidon_kernel
+from ..ops import witness_kernel
 from ..prover.builder import CircuitBuilder, CircuitData, require_device
 from ..prover.prove import prove_batch
 from ..prover.recursion import (
@@ -47,6 +56,7 @@ class AggregationCircuit:
     pt1: ProofTargets
     vt: VerifierTargets
     inner_common: CommonData
+    config: CircuitConfig   # what it was built from, with inner_common: a worker rebuilds it
 
 
 def build_aggregation_circuit(inner_common: CommonData, config: CircuitConfig = None,
@@ -55,8 +65,8 @@ def build_aggregation_circuit(inner_common: CommonData, config: CircuitConfig = 
     root(4) ‖ rest(child0) ‖ rest(child1), built on `device`. Child
     public-input layout is assumed to start with a shared 4-element digest
     (the Semaphore Merkle root; recursion.rs:106-165)."""
-    b = CircuitBuilder(config or recursion_config(inner_common.config.fri_config),
-                       device=device)
+    config = config or recursion_config(inner_common.config.fri_config)
+    b = CircuitBuilder(config, device=device)
     npi = inner_common.num_public_inputs
     if npi < 4:
         raise ValueError("children must expose a leading 4-element root digest")
@@ -75,12 +85,13 @@ def build_aggregation_circuit(inner_common: CommonData, config: CircuitConfig = 
     verify_proof_targets(b, pt0, vt, inner_common)
     verify_proof_targets(b, pt1, vt, inner_common)
 
-    return AggregationCircuit(
-        data=b.build(), pt0=pt0, pt1=pt1, vt=vt, inner_common=inner_common)
+    return AggregationCircuit(data=b.build(), pt0=pt0, pt1=pt1, vt=vt,
+                              inner_common=inner_common, config=config)
 
 
 def prove_aggregation_level(agg: AggregationCircuit, proofs: List[Proof],
                             inner_vk: VerifierOnlyData, max_pairs: int = None,
+                            procs: int = None, worker_stats: list = None,
                             **prove_kw) -> List[Proof]:
     """One tree level: proofs[2k], proofs[2k+1] -> aggregated proof k, all
     pairs proved as one batch on the circuit's device. `prove_kw` goes to
@@ -90,25 +101,52 @@ def prove_aggregation_level(agg: AggregationCircuit, proofs: List[Proof],
     `max_pairs` proves a wider level as sequential prove_batch calls of at
     most that many pairs, pairs [s, s + max_pairs) in turn, as the JAX
     package does (None reads SVT_AGG_CHUNK; 0 proves the level in one
-    batch). The JAX package's SVT_AGG_PROCS, which proves a level's chunks
-    in os.fork'ed workers, has no counterpart: it raises."""
+    batch).
+
+    `procs` (None reads SVT_AGG_PROCS, default 1) proves the level's B
+    pairs in min(procs, B) worker processes when that is more than one,
+    worker i the pairs [(i*B)//procs, ((i+1)*B)//procs), the JAX package's
+    chunks; each worker proves its chunk on the circuit's device (under
+    `max_pairs` as above, and never in workers of its own) and the proofs
+    come back in order. The JAX package forks its workers; these are
+    spawned, since a CUDA context does not survive fork, and each rebuilds
+    the level's circuit from `agg.inner_common` and `agg.config` and
+    raises if the rebuild differs from `agg` (common data, verifying key).
+    A worker's proving launches are added to this process's kernel
+    counters (the `LAUNCHES` of every kernel wrapper), its stage times to
+    `prove_kw["stage_ms"]`. Every value of `prove_kw` must pickle
+    (TypeError names the key that does not). A worker's failure raises
+    RuntimeError with its traceback; the others are stopped. Nothing is
+    retried and nothing moves to another device.
+
+    The random draws in workers: without generators each worker draws
+    fresh ones (witness, then salt), as the JAX package's forked workers
+    do. Given `witness_rng` / `salt_rng`, worker k draws from child k of
+    each, `Generator.spawn(procs)` made here in chunk order (ValueError for
+    a generator that cannot make children): the parent's generators are
+    not drawn from, and worker k's proofs are those of proving its chunk
+    in one process from those two children. `worker_stats`, if given,
+    receives for each worker a dict of its pairs, start-up, rebuild and
+    prove seconds, the seconds from its start to its result here
+    (`result_s`), stage ms and launches."""
     if not proofs or len(proofs) % 2:
         raise ValueError(f"a level needs an even, nonzero number of proofs, got {len(proofs)}")
-    if int(os.environ.get("SVT_AGG_PROCS", "1")) > 1:
-        raise NotImplementedError(
-            "SVT_AGG_PROCS > 1 proves a level in os.fork'ed workers in the JAX "
-            "package; a CUDA context does not survive fork, and the card proves "
-            "a level's pairs as one batch (or in chunks: SVT_AGG_CHUNK)")
     if max_pairs is None:
         max_pairs = int(os.environ.get("SVT_AGG_CHUNK", "0"))
+    if procs is None:
+        procs = int(os.environ.get("SVT_AGG_PROCS", "1"))
     left, right = proofs[0::2], proofs[1::2]
     B = len(left)
+    procs = min(procs, B)  # a narrow level proves one pair a worker
+    if procs > 1:
+        return _prove_level_workers(agg, left, right, inner_vk, procs, max_pairs,
+                                    prove_kw, worker_stats)
     if max_pairs and B > max_pairs:
         out: List[Proof] = []
         for s in range(0, B, max_pairs):
             out.extend(prove_aggregation_level(
                 agg, proofs[2 * s:2 * (s + max_pairs)], inner_vk, max_pairs=0,
-                **prove_kw))
+                procs=1, **prove_kw))
         return out
     device = agg.data.device
     inputs: Dict = {}
@@ -118,9 +156,161 @@ def prove_aggregation_level(agg: AggregationCircuit, proofs: List[Proof],
     return prove_batch(agg.data, inputs, B, device=device, **prove_kw)
 
 
+# the kernel wrappers whose launch counters a worker's deltas are added to
+COUNTED = {m.__name__: m for m in (poseidon_kernel, poseidon_bn254_kernel, field_kernel,
+                                   ntt_kernel, witness_kernel)}
+
+
+def _children(rng, procs: int, name: str) -> list:
+    """One child generator of `rng` a worker, in chunk order; None each
+    without one (the worker then draws a fresh generator)."""
+    if rng is None:
+        return [None] * procs
+    try:
+        return rng.spawn(procs)
+    except (AttributeError, TypeError, ValueError) as e:
+        raise ValueError(f"{name} cannot make a child generator for each of {procs} "
+                         f"workers ({e}); give np.random.Generator objects, or none") from e
+
+
+def _prove_level_workers(agg, left, right, inner_vk, procs, max_pairs, prove_kw,
+                         worker_stats):
+    """The counterpart of the JAX package's _prove_level_forked: the
+    level's pairs in `procs` spawned workers (prove_aggregation_level)."""
+    B = len(left)
+    bounds = [(i * B) // procs for i in range(procs + 1)]
+    kw = dict(prove_kw)
+    stage_ms = kw.pop("stage_ms", None)
+    children = {name: _children(kw.pop(name, None), procs, name)
+                for name in ("witness_rng", "salt_rng")}
+    for key, value in kw.items():
+        try:
+            pickle.dumps(value)
+        except (pickle.PicklingError, AttributeError, TypeError) as e:
+            raise TypeError(f"prove_kw[{key!r}] does not pickle, so it cannot reach a "
+                            f"worker process: {e}") from e
+    level = {"inner_common": agg.inner_common.to_json(), "config": agg.config,
+             "device": str(agg.data.device), "common": agg.data.common.to_json(),
+             "vk": agg.data.vk}
+    jobs = [{"level": level, "pairs": (s, e), "procs": procs,
+             "proofs": [p for lr in zip(left[s:e], right[s:e]) for p in lr],
+             "inner_vk": inner_vk, "max_pairs": max_pairs,
+             "prove_kw": {**kw, "witness_rng": children["witness_rng"][k],
+                          "salt_rng": children["salt_rng"][k]}}
+            for k, (s, e) in enumerate(zip(bounds[:-1], bounds[1:]))]
+    out: List[Proof] = []
+    for res in _run_workers(jobs):
+        out.extend(res["proofs"])
+        for module, deltas in res["launches"].items():
+            for name, n in deltas.items():
+                COUNTED[module].LAUNCHES[name] += n
+        if stage_ms is not None:
+            for stage, ms in res["stage_ms"].items():
+                stage_ms[stage] = stage_ms.get(stage, 0.0) + ms
+        if worker_stats is not None:
+            worker_stats.append({k: res[k] for k in ("pairs", "start_s", "rebuild_s",
+                                                     "prove_s", "result_s", "stage_ms",
+                                                     "launches")})
+    return out
+
+
+def _run_workers(jobs: list) -> list:
+    """Each job in a spawned process of its own (`_level_worker`); their
+    results in job order, each with `result_s`, the wall seconds from its
+    process's start to its result here. The first failure, or a worker
+    that ends without a result, raises RuntimeError; every worker is
+    stopped on the way out."""
+    ctx = multiprocessing.get_context("spawn")
+    workers, sent = [], []
+    try:
+        for job in jobs:
+            recv, send = ctx.Pipe(duplex=False)
+            sent.append(time.time())
+            p = ctx.Process(target=_level_worker, args=(send, {**job, "sent": sent[-1]}),
+                            daemon=True)
+            p.start()
+            send.close()   # the worker's end: its exit closes the pipe
+            workers.append((recv, p))
+        results = [None] * len(jobs)
+        waiting = {recv: k for k, (recv, _) in enumerate(workers)}
+        while waiting:
+            for recv in multiprocessing.connection.wait(list(waiting)):
+                k = waiting.pop(recv)
+                s, e = jobs[k]["pairs"]
+                try:
+                    kind, value = recv.recv()
+                except EOFError:
+                    p = workers[k][1]
+                    p.join(5)
+                    raise RuntimeError(f"aggregation worker {k} (pairs {s}..{e - 1}) ended "
+                                       f"without a result, exit code {p.exitcode}") from None
+                if kind != "ok":
+                    raise RuntimeError(f"aggregation worker {k} (pairs {s}..{e - 1}) "
+                                       f"failed:\n{value}")
+                results[k] = {**value, "result_s": time.time() - sent[k]}
+        return results
+    finally:
+        for recv, p in workers:
+            recv.close()
+            if p.is_alive():
+                p.terminate()
+            p.join()
+
+
+def _level_worker(conn, job):
+    """A worker process: ("ok", its chunk's result) or ("error", the
+    traceback) through `conn`."""
+    try:
+        msg = ("ok", _prove_chunk(**job))
+    except Exception:
+        msg = ("error", traceback.format_exc())
+    conn.send(msg)
+    conn.close()
+
+
+def rebuild_level(level: dict) -> AggregationCircuit:
+    """The aggregation circuit a worker proves on: built on the level's
+    device from its inner CommonData (JSON) and config, and held against
+    the parent's common data and verifying key (RuntimeError if they
+    differ)."""
+    agg = build_aggregation_circuit(CommonData.from_json(level["inner_common"]),
+                                    level["config"], device=level["device"])
+    vk = level["vk"]
+    if (agg.data.common.to_json() != level["common"]
+            or not np.array_equal(agg.data.vk.circuit_digest, vk.circuit_digest)
+            or not np.array_equal(agg.data.vk.constants_sigmas_cap, vk.constants_sigmas_cap)):
+        raise RuntimeError("the aggregation circuit rebuilt in a worker differs from "
+                           "the parent's (common data or verifying key)")
+    return agg
+
+
+def _prove_chunk(level, pairs, procs, proofs, inner_vk, max_pairs, prove_kw, sent) -> dict:
+    """A worker's chunk: the level rebuilt, its pairs proved in this
+    process, and the launches that proving made; `start_s`, the wall
+    seconds from the parent's start of this process (`sent`) to here."""
+    start_s = time.time() - sent
+    device = require_device(level["device"])   # raises without a CUDA device
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // procs))
+    t0 = time.perf_counter()
+    agg = rebuild_level(level)
+    before = {name: dict(m.LAUNCHES) for name, m in COUNTED.items()}
+    t1 = time.perf_counter()
+    stage_ms = {}
+    out = prove_aggregation_level(agg, proofs, inner_vk, max_pairs=max_pairs, procs=1,
+                                  stage_ms=stage_ms, **prove_kw)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t2 = time.perf_counter()
+    launches = {name: {k: n - before[name][k] for k, n in m.LAUNCHES.items()}
+                for name, m in COUNTED.items()}
+    return {"proofs": out, "pairs": pairs, "start_s": start_s, "rebuild_s": t1 - t0,
+            "prove_s": t2 - t1, "stage_ms": stage_ms, "launches": launches}
+
+
 def aggregate_proofs(proofs: List[Proof], common: CommonData,
                      vk: VerifierOnlyData, config: CircuitConfig = None,
                      _cache: Dict = None, device="cuda", level_stats: list = None,
+                     procs: int = None,
                      **prove_kw) -> Tuple[Proof, CircuitData, List[AggregationCircuit]]:
     """Fold 2^k proofs into one (recursion.rs:187-247) on `device`. Returns
     (final proof, final circuit data, per-level circuits). Each level's
@@ -130,7 +320,12 @@ def aggregate_proofs(proofs: List[Proof], common: CommonData,
     `level_stats`, if given, receives for each level a dict of its degree
     bits, pairs, gate rows by gate type, generators, build and prove
     seconds and prove_batch's stage ms (device synchronized at the
-    marks)."""
+    marks), the worker processes the level was proved in (`procs`, 1 for
+    this process) and each worker's start-up, rebuild, prove and
+    start-to-result seconds (`worker_start_s`, `worker_rebuild_s`,
+    `worker_prove_s`, `worker_result_s`). `procs` goes to
+    prove_aggregation_level (None reads SVT_AGG_PROCS): a level of fewer
+    pairs, the last among them, is proved in fewer workers."""
     device = require_device(device)
     n = len(proofs)
     if not n or n & (n - 1):
@@ -149,15 +344,20 @@ def aggregate_proofs(proofs: List[Proof], common: CommonData,
                 _cache[key] = agg
         t1 = time.perf_counter()
         stages = {} if level_stats is not None else prove_kw.get("stage_ms")
+        workers = []
         level_proofs = prove_aggregation_level(
-            agg, level_proofs, level_vk, **{**prove_kw, "stage_ms": stages})
+            agg, level_proofs, level_vk, procs=procs, worker_stats=workers,
+            **{**prove_kw, "stage_ms": stages})
         if level_stats is not None:
             rows = collections.Counter(type(g).__name__ for g, _ in agg.data.builder.gate_rows)
             level_stats.append({"degree_bits": agg.data.common.degree_bits,
                                 "pairs": len(level_proofs), "gate_rows": dict(rows),
                                 "generators": len(agg.data.builder.generators),
                                 "build_s": t1 - t0, "prove_s": time.perf_counter() - t1,
-                                "stage_ms": stages})
+                                "stage_ms": stages, "procs": len(workers) or 1,
+                                **{f"worker_{k}": [w[k] for w in workers]
+                                   for k in ("start_s", "rebuild_s", "prove_s",
+                                             "result_s")}})
         levels.append(agg)
         level_data = agg.data
         level_common, level_vk = agg.data.common, agg.data.vk
@@ -186,7 +386,7 @@ def aggregate_signals(aset, signals, config: CircuitConfig = None,
     root(4) ‖ nullifier(4) ‖ topics(4); each level re-exposes
     root ‖ children-rest, so the final proof's PIs carry every nullifier
     and topic in tree order. `kw` goes to aggregate_proofs (witness_rng,
-    salt_rng, level_stats, ...)."""
+    salt_rng, level_stats, procs, ...)."""
     data = aset.circuit()
     proofs = [s.proof for s in signals]
     final, final_data, _ = aggregate_proofs(

@@ -158,9 +158,3 @@ def test_aggregation_level_chunks_as_the_reference(pairs, max_pairs, monkeypatch
     assert len(ref_calls) == n_chunks and got == by_env == ref
     assert got == [(2 * k, 2 * k + 1) for k in range(pairs)]
     assert got_calls == 2 * [c[:4] + (gen,) for c in ref_calls]
-
-
-def test_fork_workers_refused(monkeypatch):
-    monkeypatch.setenv("SVT_AGG_PROCS", "2")
-    with pytest.raises(NotImplementedError, match="fork"):
-        TR.prove_aggregation_level(AGG, list(range(4)), "vk")
