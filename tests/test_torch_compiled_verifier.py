@@ -23,7 +23,6 @@ from stark_verifier_tpu_torch.core.types import load_proofs
 from stark_verifier_tpu_torch.models import flagship as TFS
 from stark_verifier_tpu_torch.ops import gl64
 
-torch.set_num_threads(1)
 
 # fixture, how many of its proofs, the lane corrupted (an opening flipped)
 CASES = [("sem_entry8", 8, 5), ("sem_zk20b64", 4, 2)]

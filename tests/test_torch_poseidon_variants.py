@@ -81,11 +81,14 @@ def test_byte_split_mds_keeps_trailing_shape():
     assert (shaped.reshape(12, 120) == flat).all()
 
 
-@pytest.mark.parametrize("mxu,block_b", [(1, 128), (2, 256)])
+@pytest.mark.parametrize("mxu,block_b", [
+    (1, 128), pytest.param(2, 256, marks=pytest.mark.time_limit(240))])
 def test_permute_plain_matches_pallas_kernel_interpret(mxu, block_b):
     """The TPU kernels these variants replace (`_kernel_mxu` at mxu=1,
     `_kernel_mxu2` at mxu=2 with a 256-lane tile), run by the Pallas
-    interpreter on the CPU, 256 lanes."""
+    interpreter on the CPU, 256 lanes. Tracing and lowering the interpreted
+    kernel, not its lanes, take the time: ~30 s at mxu=1 and ~60 s at
+    mxu=2 (its time_limit)."""
     state = _state(40 + mxu, 256)
     out_lo, out_hi = pk.poseidon_permute_batch(
         *_planes(state), interpret=True, block_b=block_b, mxu=mxu)

@@ -42,7 +42,6 @@ from test_torch_prover_builder import PORT, REF, chain_circuit, chain_inputs
 REPO = Path(__file__).resolve().parent.parent
 P = gl.P
 F = gl64.Field("cpu")
-torch.set_num_threads(1)
 SEEDS = (101, 102)
 
 

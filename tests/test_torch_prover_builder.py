@@ -30,8 +30,6 @@ from stark_verifier_tpu_torch.semaphore import access_set as TA
 
 P = gl.P
 F = gl64.Field("cpu")
-# the plain permutation's tensors are small here: more threads only cost
-torch.set_num_threads(1)
 
 # (builder class, types module, extra builder kwargs) of each package
 REF = (RB.CircuitBuilder, RT, {})

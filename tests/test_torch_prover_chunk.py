@@ -29,7 +29,6 @@ from stark_verifier_tpu_torch.semaphore import access_set as TA
 from stark_verifier_tpu_torch.semaphore import recursion as TR
 from test_torch_prover import assert_proofs_equal
 
-torch.set_num_threads(1)
 P = gl64.P
 H, B, CHUNK = 2, 3, 2
 SEEDS = (601, 602, 603, 604)  # witness, salt of chunk 0; of chunk 1

@@ -6,7 +6,6 @@ verifier accepts the other's; a proof of a non-member key made with
 check_witness=False is rejected by both verifiers. The draws are matched as
 in tests/test_torch_prover.py."""
 import numpy as np
-import torch
 
 from stark_verifier_tpu.core import types as RT
 from stark_verifier_tpu.core.verifier import verify_proof as ref_verify
@@ -20,7 +19,6 @@ from test_torch_prover_builder import kitchen_sink_circuit, kitchen_sink_inputs
 
 P = gl.P
 F = gl64.Field("cpu")
-torch.set_num_threads(1)
 
 
 def test_kitchen_sink_proofs_equal_reference_and_cross_verify(monkeypatch):

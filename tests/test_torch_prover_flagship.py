@@ -4,12 +4,10 @@ from which it may cache the hashed keys and tree: with neither a
 fixtures/ stays as it was); with a `cache_dir` the tree lands there, and
 the proofs are the same under the same random draws. The batch is one
 signal at the small preset, to keep the file under a minute here."""
-import torch
 
 from stark_verifier_tpu_torch.models import flagship as TFS
 from test_torch_prover import assert_proofs_equal, port_accepts, port_rngs
 
-torch.set_num_threads(1)
 BITS = 16
 
 

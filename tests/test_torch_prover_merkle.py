@@ -19,7 +19,6 @@ from stark_verifier_tpu_torch.ops import gl64, hashers
 
 P = gl.P
 F = gl64.Field("cpu")
-torch.set_num_threads(1)
 B, N = 2, 16  # two trees of 16 leaves: depth 4
 
 

@@ -21,7 +21,6 @@ from test_torch_prover import assert_proofs_equal, port_accepts, port_rngs, seed
 
 P = gl.P
 F = gl64.Field("cpu")
-torch.set_num_threads(1)
 H, B = 4, 2
 
 

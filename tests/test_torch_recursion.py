@@ -11,12 +11,28 @@ package's fill and Horner chain on edge words.
 
 The plain permutations cost seconds at the circuits' lane counts on this
 CPU (Goldilocks ~1 s, the BN254 bridge ~38 s at 16,384 lanes) and the plain
-fill ~40 ms a PoseidonGate row, so the provers here run on test-only
-adapters around the JAX package's C planes (`stark_verifier_tpu.native`):
-`use_native_planes` puts them behind the port's hash-config switch and its
-fill, and `test_native_adapters_equal_the_port_plain_versions` holds each
-adapter against the port's plain version. Other files import the helpers."""
+fill ~40 ms a PoseidonGate row, the plain extension arithmetic ~1 ms a
+call at two lanes (~10,000 calls an aggregation level) and the plain
+low-degree extension seconds at the aggregation degrees, so the provers
+here run on test-only adapters around the JAX package's C planes
+(`stark_verifier_tpu.native`): `use_native_planes` puts them behind the
+port's hash-config switch, its three plain witness kernels (the fill,
+ext2_arith and ext2_reduce_chain) and its plain coset_lde, and
+`test_native_adapters_equal_the_port_plain_versions` holds each adapter
+against the port's plain version on edge words. This file's own inner
+proofs and aggregation level take only the hash and fill adapters
+(`under_hash_planes`): there the port's plain ext2_arith, ext2_reduce_chain
+and coset_lde run at a real level's shapes, and the level's proofs must
+still equal the JAX package's. Other files import the helpers.
+
+The JAX package's side of this file and of the five other
+tests/test_torch_recursion_*.py (its circuits as records, its proofs, its
+generators' end states) is read from the file tests/recursion_reference.py
+froze; only where a JAX package call is itself the check (a corrupt child
+refused here, the forked level of tests/test_torch_recursion_procs.py) does
+it run live. The port's side is always built and proved by the test."""
 import copy
+import ctypes
 import json
 import os
 
@@ -29,21 +45,22 @@ from stark_verifier_tpu.core import gates as JG
 from stark_verifier_tpu.core.verifier import verify_proof as ref_verify
 from stark_verifier_tpu.ops import ext2 as jext2
 from stark_verifier_tpu.ops import gl64_np as gl
+from stark_verifier_tpu.ops import ntt_np as rn
 from stark_verifier_tpu.semaphore import recursion as RR
 from stark_verifier_tpu_torch.core import verifier as TV
-from stark_verifier_tpu_torch.ops import gl64
+from stark_verifier_tpu_torch.ops import gl64, ntt
 from stark_verifier_tpu_torch.ops import poseidon_bn254_kernel as bk
 from stark_verifier_tpu_torch.ops import poseidon_kernel as pk
 from stark_verifier_tpu_torch.ops import witness_kernel as WK
 from stark_verifier_tpu_torch.prover import builder as TB
 from stark_verifier_tpu_torch.prover import prove as TP
 from stark_verifier_tpu_torch.semaphore import recursion as TR
-from test_recursion import build_tiny_inner, tiny_inner_config
+import recursion_reference as REF
+from test_recursion import tiny_inner_config
 from test_torch_prover import assert_proofs_equal
 
 P = gl.P
 F = gl64.Field("cpu")
-torch.set_num_threads(1)
 EDGES = np.array([0, 1, P - 1, P, P + 1, 2**32 - 1, 2**32, 2**63, 2**64 - 1],
                  dtype=np.uint64)
 
@@ -71,31 +88,86 @@ def native_fill(ins, swap):
         (135,) + tuple(ins.shape[1:]))
 
 
-def use_native_planes(mp):
-    """Route the port's hash-config switch (builder, prover, verifier) and
-    its plain fill through the adapters, on monkeypatch `mp`."""
+def _words(a, shape):
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int64)).reshape(shape)
+
+
+def _ptr(t):
+    return ctypes.cast(t.data_ptr(), ctypes.POINTER(ctypes.c_uint64))
+
+
+def native_ext2_arith(c0, c1, x, y, z):
+    """ext2_arith through the JAX package's C plane (svt_ext2_arith_batch),
+    called on the tensors' memory: ~10,000 calls an aggregation level."""
+    ops = [gl64.canonical(t).reshape(2, -1).contiguous() for t in (x, y, z)]
+    out = torch.empty_like(ops[0])
+    N.lib().svt_ext2_arith_batch(int(c0) % P, int(c1) % P,
+                                 *(_ptr(t[k]) for t in ops for k in (0, 1)),
+                                 _ptr(out[0]), _ptr(out[1]), out.shape[1])
+    return out.reshape(x.shape)
+
+
+def native_chain(alpha, acc, coeffs):
+    """ext2_reduce_chain through the JAX package's C plane
+    (svt_ext2_reduce_chain)."""
+    lanes = alpha[0].numel()
+    out = N.ext2_reduce_chain_np(gl64.to_u64(alpha).reshape(2, lanes),
+                                 gl64.to_u64(acc).reshape(2, lanes),
+                                 gl64.to_u64(coeffs).reshape(-1, 2, lanes))
+    return _words(out, coeffs.shape)
+
+
+def native_coset_lde(x, rate_bits, shift):
+    """coset_lde through the JAX package's ops/ntt_np (its C plane,
+    svt_coset_lde_batch, at the provers' lengths)."""
+    n = x.shape[-1]
+    out = rn.coset_lde(gl64.to_u64(x).reshape(-1, n), rate_bits, shift)
+    return _words(out, tuple(x.shape[:-1]) + (n << rate_bits,))
+
+
+def use_native_planes(mp, arith=True):
+    """Route the port's hash-config switch (builder, prover, verifier), its
+    plain fill and, with `arith`, its plain extension arithmetic, Horner
+    chain and low-degree extension through the adapters, on monkeypatch
+    `mp`."""
     def get_permute(name, F_):
         return NATIVE[name or "poseidon"]
 
     for mod in (TB, TP, TV):
         mp.setattr(mod, "get_permute", get_permute)
     mp.setattr(WK, "poseidon_gate_fill_plain", native_fill)
+    if arith:
+        mp.setattr(WK, "ext2_arith_plain", native_ext2_arith)
+        mp.setattr(WK, "ext2_reduce_chain_plain", native_chain)
+        mp.setattr(ntt, "coset_lde_plain", native_coset_lde)
 
 
-def under_native_planes(fn, *args, **kw):
-    """fn(*args, **kw) with the adapters in place, then undone; a JAX
-    package call runs through it for the threads alone. The C planes take
-    their threads from the OpenMP runtime that torch shares (other files
-    set one thread); they get NATIVE_THREADS meanwhile."""
+def _under(arith, fn, args, kw):
     mp = pytest.MonkeyPatch()
     threads = torch.get_num_threads()
     try:
-        use_native_planes(mp)
+        use_native_planes(mp, arith)
         torch.set_num_threads(NATIVE_THREADS)
         return fn(*args, **kw)
     finally:
         torch.set_num_threads(threads)
         mp.undo()
+
+
+def under_native_planes(fn, *args, **kw):
+    """fn(*args, **kw) with the adapters in place, then undone; a JAX
+    package call runs through it for the threads alone. The C planes take
+    their threads from the OpenMP runtime that torch shares (one thread
+    in a test process); they get NATIVE_THREADS meanwhile."""
+    return _under(True, fn, args, kw)
+
+
+def under_hash_planes(fn, *args, **kw):
+    """under_native_planes with the hash and fill adapters alone: the
+    port's own plain extension arithmetic, Horner chain and low-degree
+    extension run, at the shapes of a real level (this file's inner proofs
+    and aggregation level)."""
+    return _under(False, fn, args, kw)
 
 
 def build_tiny_inner_port(batch, min_degree=128):
@@ -124,41 +196,42 @@ def port_accepts(common, vk, proofs):
     return all(bool(TV.verify_proof(F, common, vk, p, permute=perm)) for p in proofs)
 
 
-def assert_circuits_equal(ref_data, port_data):
+def assert_circuits_equal(ref, port_data):
     """Rows, gate constants, copy constraints, public inputs, common data
-    and verifying key."""
-    rb, tb = ref_data.builder, port_data.builder
-    assert [(g.id, c) for g, c in rb.gate_rows] == [(g.id, c) for g, c in tb.gate_rows]
-    assert rb.copy_constraints == tb.copy_constraints
-    assert rb.public_inputs == tb.public_inputs
-    assert ref_data.common.to_json() == port_data.common.to_json()
-    assert np.array_equal(ref_data.vk.circuit_digest, port_data.vk.circuit_digest)
-    assert np.array_equal(ref_data.vk.constants_sigmas_cap,
-                          port_data.vk.constants_sigmas_cap)
+    and verifying key; `ref` the JAX package's circuit or its record
+    (tests/recursion_reference.py)."""
+    want = ref if isinstance(ref, dict) else REF.circuit_record(ref)
+    got = REF.circuit_record(port_data)
+    assert want["gate_rows"] == got["gate_rows"]
+    assert want["copy_constraints"] == got["copy_constraints"]
+    assert want["public_inputs"] == got["public_inputs"]
+    assert want["common"] == got["common"]
+    assert np.array_equal(want["circuit_digest"], got["circuit_digest"])
+    assert np.array_equal(want["constants_sigmas_cap"], got["constants_sigmas_cap"])
 
 
 @pytest.fixture(scope="module")
 def inner():
-    ref_proofs, ref_data, root = under_native_planes(build_tiny_inner, batch=4)
-    port_proofs, port_data, port_root = under_native_planes(build_tiny_inner_port, 4)
-    assert np.array_equal(root, port_root)
-    return ref_proofs, ref_data, port_proofs, port_data, root
+    """The tiny inner circuit's four proofs: the JAX package's (its circuit
+    as a record), frozen; the port's, proved here."""
+    ref = REF.load()["inner4"]
+    port_proofs, port_data, port_root = under_hash_planes(build_tiny_inner_port, 4)
+    assert np.array_equal(ref["root"], port_root)
+    return ref["proofs"], ref["circuit"], port_proofs, port_data, ref["root"]
 
 
 @pytest.fixture(scope="module")
 def level(inner):
-    """One aggregation level over the four inner proofs (two pairs, B = 2)
-    in both packages."""
-    ref_proofs, ref_data, port_proofs, port_data, _ = inner
-    ragg = under_native_planes(RR.build_aggregation_circuit, ref_data.common)
-    tagg = under_native_planes(TR.build_aggregation_circuit, port_data.common,
-                               device="cpu")
-    ref_out = under_native_planes(RR.prove_aggregation_level, ragg, ref_proofs,
-                                  ref_data.vk)
+    """One aggregation level over the four inner proofs (two pairs, B = 2):
+    the JAX package's circuit record and proofs, frozen; the port's."""
+    ref = REF.load()["level"]
+    _, _, port_proofs, port_data, _ = inner
+    tagg = under_hash_planes(TR.build_aggregation_circuit, port_data.common,
+                             device="cpu")
     stages = {}
-    port_out = under_native_planes(TR.prove_aggregation_level, tagg, port_proofs,
-                                   port_data.vk, stage_ms=stages)
-    return ragg, tagg, ref_out, port_out, stages
+    port_out = under_hash_planes(TR.prove_aggregation_level, tagg, port_proofs,
+                                 port_data.vk, stage_ms=stages)
+    return ref["circuit"], tagg, ref["proofs"], port_out, stages
 
 
 # ------------------------------------------------------------------ tests
@@ -171,6 +244,21 @@ def test_native_adapters_equal_the_port_plain_versions():
     assert torch.equal(NATIVE["bn254"](F, x), bk.permute_plain(x))
     sw = F.from_u64(np.array([0, 1, 1, P, P + 1], np.uint64))
     assert torch.equal(native_fill(x, sw), WK.poseidon_gate_fill_plain(x, sw))
+    pairs = [x[2 * i:2 * i + 2] for i in range(6)]
+    for c0, c1 in [(1, 0), (3, 1), (P - 1, P - 1), (P + 5, 2**64 - 1)]:
+        assert torch.equal(native_ext2_arith(c0, c1, *pairs[:3]),
+                           WK.ext2_arith_plain(c0, c1, *pairs[:3])), (c0, c1)
+    for k in (0, 1, 9):
+        coeffs = F.from_u64(rng.integers(0, 2**64, size=(k, 2, 5), dtype=np.uint64))
+        if k:
+            coeffs[0, :, 1:] = x[4:6, 1:]
+        assert torch.equal(native_chain(pairs[3], pairs[4], coeffs),
+                           WK.ext2_reduce_chain_plain(pairs[3], pairs[4], coeffs)), k
+    for shape, rate_bits in [((5, 4), 2), ((3, 8), 3), ((2, 2, 64), 1), ((1, 1024), 3)]:
+        coeffs = F.from_u64(rng.integers(0, 2**64, size=shape, dtype=np.uint64))
+        coeffs.view(-1)[:len(EDGES)] = F.from_u64(EDGES)
+        assert torch.equal(native_coset_lde(coeffs, rate_bits, 7),
+                           ntt.coset_lde_plain(coeffs, rate_bits, 7)), shape
 
 
 @pytest.mark.parametrize("lanes", [1, 7])
@@ -238,14 +326,14 @@ def test_witness_kernels_refuse_other_devices_and_shapes():
 
 
 def test_tiny_inner_proofs_equal_reference(inner):
-    ref_proofs, ref_data, port_proofs, port_data, _ = inner
-    assert_circuits_equal(ref_data, port_data)
+    ref_proofs, ref_circuit, port_proofs, port_data, _ = inner
+    assert_circuits_equal(ref_circuit, port_data)
     assert_proofs_equal(ref_proofs, port_proofs)
 
 
 def test_aggregation_circuit_equals_reference(level):
     ragg, tagg, _, _, _ = level
-    assert_circuits_equal(ragg.data, tagg.data)
+    assert_circuits_equal(ragg, tagg.data)
     assert tagg.data.common.degree_bits == 11
     assert json.loads(tagg.data.common.to_json())["config"]["num_wires"] == 135
 
@@ -265,17 +353,18 @@ def test_aggregated_pairs_equal_reference(inner, level):
 
 def test_aggregated_pairs_cross_verify(level):
     ragg, tagg, ref_out, port_out, _ = level
-    assert all(ref_verify(gl, ragg.data.common, ragg.data.vk, p) for p in port_out)
+    assert all(ref_verify(gl, REF.common_of(ragg), REF.vk_of(ragg), p) for p in port_out)
     assert port_accepts(tagg.data.common, tagg.data.vk, ref_out)
 
 
 def test_corrupt_child_raises_witness_conflict_in_both(inner, level, monkeypatch):
-    ref_proofs, ref_data, port_proofs, port_data, _ = inner
-    ragg, tagg, _, _, _ = level
+    ref_proofs, ref_circuit, port_proofs, port_data, _ = inner
+    _, tagg, _, _, _ = level
+    ragg = RR.build_aggregation_circuit(REF.common_of(ref_circuit))
     bad = copy.deepcopy(ref_proofs[1])
     bad.openings.wires[0, 0] ^= np.uint64(1)
     with pytest.raises(AssertionError):
-        RR.prove_aggregation_level(ragg, [ref_proofs[0], bad], ref_data.vk)
+        RR.prove_aggregation_level(ragg, [ref_proofs[0], bad], REF.vk_of(ref_circuit))
     use_native_planes(monkeypatch)
     with pytest.raises(TB.WitnessConflict):
         TR.prove_aggregation_level(tagg, [port_proofs[0], bad], port_data.vk)

@@ -36,12 +36,11 @@ from stark_verifier_tpu_torch.core.types import FriConfig
 from stark_verifier_tpu_torch.ops import poseidon_kernel as pk
 from stark_verifier_tpu_torch.prover.recursion import recursion_config
 from stark_verifier_tpu_torch.semaphore import recursion as TR
-from test_recursion import build_tiny_inner
+import recursion_reference as REF
 from test_torch_prover import assert_proofs_equal
 from test_torch_recursion import (NATIVE, assert_circuits_equal, build_tiny_inner_port,
                                   under_native_planes, use_native_planes)
 
-torch.set_num_threads(1)
 SEEDS = (701, 702)   # the zero-knowledge level's witness and salt generators
 WAIT_S = 240         # no test waits longer on its workers
 
@@ -72,28 +71,29 @@ class NativePlanes:
 @pytest.fixture(scope="module")
 def inner():
     """The tiny inner circuit's four proofs in both packages (equal: see
-    tests/test_torch_recursion.py)."""
-    ref_proofs, ref_data, root = under_native_planes(build_tiny_inner, batch=4)
+    tests/test_torch_recursion.py): the JAX package's frozen
+    (tests/recursion_reference.py), the port's proved here."""
+    ref = REF.load()["inner4"]
     port_proofs, port_data, _ = under_native_planes(build_tiny_inner_port, 4)
-    return ref_proofs, ref_data, port_proofs, port_data, root
+    return ref["proofs"], ref["circuit"], port_proofs, port_data, ref["root"]
 
 
 @pytest.fixture(scope="module")
 def level(inner):
     """The aggregation level (no zero knowledge) in both packages; the JAX
-    package's proofs from one process and from two forked workers."""
-    ref_proofs, ref_data, _, port_data, _ = inner
-    ragg = under_native_planes(RR.build_aggregation_circuit, ref_data.common)
-    one = under_native_planes(RR.prove_aggregation_level, ragg, ref_proofs, ref_data.vk)
+    package's proofs from one process (frozen) and from two forked workers
+    (live, on its circuit built here)."""
+    ref_proofs, ref_circuit, _, port_data, _ = inner
+    ragg = under_native_planes(RR.build_aggregation_circuit, REF.common_of(ref_circuit))
     mp = pytest.MonkeyPatch()
     try:
         mp.setenv("SVT_AGG_PROCS", "2")
         forked = under_native_planes(RR.prove_aggregation_level, ragg, ref_proofs,
-                                     ref_data.vk)
+                                     REF.vk_of(ref_circuit))
     finally:
         mp.undo()
     tagg = under_native_planes(TR.build_aggregation_circuit, port_data.common, device="cpu")
-    return ragg, tagg, one, forked
+    return ragg, tagg, REF.load()["level"]["proofs"], forked
 
 
 def test_workers_equal_the_reference_level(inner, level):

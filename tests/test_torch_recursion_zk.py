@@ -10,60 +10,55 @@ same two as witness_rng and salt_rng. The level's circuit equals the JAX
 package's, its proofs equal the JAX package's field by field, both
 generators end in the same state, and each package's verifier accepts the
 other's proofs. tests/test_torch_recursion_zk_tree.py proves the next
-level from the generators where this one leaves them. Test-only adapters
-as in tests/test_torch_recursion.py."""
+level from the generators where this one leaves them. The JAX package's
+side (its circuit as a record, its proofs, its generators' end states) is
+frozen (tests/recursion_reference.py). Test-only adapters as in
+tests/test_torch_recursion.py."""
 import numpy as np
 import pytest
-import torch
 
 from stark_verifier_tpu.core.verifier import verify_proof as ref_verify
 from stark_verifier_tpu.ops import gl64_np as gl
-from stark_verifier_tpu.prover.recursion import recursion_config as ref_recursion_config
-from stark_verifier_tpu.semaphore import recursion as RR
 from stark_verifier_tpu_torch.core.types import CommonData, FriConfig
 from stark_verifier_tpu_torch.prover.recursion import recursion_config
 from stark_verifier_tpu_torch.semaphore import recursion as TR
-from test_recursion import build_tiny_inner
+import recursion_reference as REF
+from recursion_reference import ZK_SEEDS as SEEDS
 from test_torch_prover import assert_proofs_equal
 from test_torch_recursion import assert_circuits_equal, port_accepts, under_native_planes
 
-torch.set_num_threads(1)
-SEEDS = (501, 502)
+
+def port_zk_config(common):
+    """recursion_config(fri, zero_knowledge=True) in the port, for the
+    inner circuit's FRI config."""
+    return recursion_config(FriConfig(**vars(common.config.fri_config)), zero_knowledge=True)
 
 
-def ref_with_generators(gens, fn, *args, **kw):
-    """fn(*args, **kw) in the JAX package, its fresh default_rng() calls
-    answered by `gens` in turn (witness, salt, witness, salt, ...)."""
-    turns = iter(gens * 8)
-    real = np.random.default_rng
-    mp = pytest.MonkeyPatch()
-    try:
-        mp.setattr(np.random, "default_rng",
-                   lambda s=None: next(turns) if s is None else real(s))
-        return under_native_planes(fn, *args, **kw)
-    finally:
-        mp.undo()
-
-
-def zk_configs(fri):
-    return (ref_recursion_config(fri, zero_knowledge=True),
-            recursion_config(FriConfig(**vars(fri)), zero_knowledge=True))
+def generators(states):
+    """Generators (the seeds' bit generator) in the given states."""
+    gens = [np.random.default_rng(s) for s in SEEDS]
+    for g, state in zip(gens, states):
+        g.bit_generator.state = state
+    return gens
 
 
 @pytest.fixture(scope="module")
 def zk_level():
-    proofs, data, root = under_native_planes(build_tiny_inner, batch=4)
-    ref_cfg, port_cfg = zk_configs(data.common.config.fri_config)
-    ragg = under_native_planes(RR.build_aggregation_circuit, data.common, ref_cfg)
-    ref_gens = [np.random.default_rng(s) for s in SEEDS]
-    ref_out = ref_with_generators(ref_gens, RR.prove_aggregation_level, ragg, proofs, data.vk)
-    tagg = under_native_planes(TR.build_aggregation_circuit,
-                               CommonData.from_json(data.common.to_json()), port_cfg,
+    """The JAX package's level, frozen: its circuit record, its proofs and
+    where it leaves the two generators; the port's proved here from the
+    inner proofs of the JAX package."""
+    ref = REF.load()
+    root, proofs = ref["inner4"]["root"], ref["inner4"]["proofs"]
+    inner = ref["inner4"]["circuit"]
+    common = CommonData.from_json(inner["common"])
+    tagg = under_native_planes(TR.build_aggregation_circuit, common, port_zk_config(common),
                                device="cpu")
     port_gens = [np.random.default_rng(s) for s in SEEDS]
-    port_out = under_native_planes(TR.prove_aggregation_level, tagg, proofs, data.vk,
+    port_out = under_native_planes(TR.prove_aggregation_level, tagg, proofs, REF.vk_of(inner),
                                    witness_rng=port_gens[0], salt_rng=port_gens[1])
-    return root, proofs, ragg, tagg, ref_out, port_out, ref_gens, port_gens
+    ref_gens = generators(ref["zk_level"]["gen_states"])
+    return (root, proofs, ref["zk_level"]["circuit"], tagg, ref["zk_level"]["proofs"],
+            port_out, ref_gens, port_gens)
 
 
 def test_zk_level_circuit_equals_reference(zk_level):
@@ -71,7 +66,7 @@ def test_zk_level_circuit_equals_reference(zk_level):
     common = tagg.data.common
     assert common.degree_bits == 12
     assert common.config.zero_knowledge and common.fri_params.hiding
-    assert_circuits_equal(ragg.data, tagg.data)
+    assert_circuits_equal(ragg, tagg.data)
 
 
 def test_zk_level_proofs_equal_reference(zk_level):
@@ -90,5 +85,5 @@ def test_zk_level_proofs_equal_reference(zk_level):
 
 def test_zk_level_cross_verify(zk_level):
     _, _, ragg, tagg, ref_out, port_out, _, _ = zk_level
-    assert all(ref_verify(gl, ragg.data.common, ragg.data.vk, p) for p in port_out)
+    assert all(ref_verify(gl, REF.common_of(ragg), REF.vk_of(ragg), p) for p in port_out)
     assert port_accepts(tagg.data.common, tagg.data.vk, ref_out)

@@ -10,49 +10,48 @@ passes its witness_rng and salt_rng on from level to level
 (tests/test_torch_recursion_zk.py holds that first level). Its circuit
 equals the JAX package's second-level circuit, its final proof equals the
 JAX package's field by field, both generators end in the same state, and
-each package's verifier accepts the other's. Test-only adapters as in
+each package's verifier accepts the other's. The JAX package's side is
+frozen (tests/recursion_reference.py). Test-only adapters as in
 tests/test_torch_recursion.py."""
-import copy
-
 import numpy as np
 import pytest
-import torch
 
 from stark_verifier_tpu.core.verifier import verify_proof as ref_verify
 from stark_verifier_tpu.ops import gl64_np as gl
-from stark_verifier_tpu.semaphore import recursion as RR
 from stark_verifier_tpu_torch.core.types import CommonData
 from stark_verifier_tpu_torch.semaphore import recursion as TR
-from test_recursion import build_tiny_inner
+import recursion_reference as REF
 from test_torch_prover import assert_proofs_equal
 from test_torch_recursion import assert_circuits_equal, port_accepts, under_native_planes
-from test_torch_recursion_zk import SEEDS, ref_with_generators, zk_configs
-
-torch.set_num_threads(1)
+from test_torch_recursion_zk import generators, port_zk_config
 
 
 @pytest.fixture(scope="module")
 def zk_tree():
-    proofs, data, root = under_native_planes(build_tiny_inner, batch=4)
-    ref_cfg, port_cfg = zk_configs(data.common.config.fri_config)
-    ref_gens = [np.random.default_rng(s) for s in SEEDS]
-    level1 = under_native_planes(RR.build_aggregation_circuit, data.common, ref_cfg)
-    children = ref_with_generators(ref_gens, RR.prove_aggregation_level, level1, proofs,
-                                   data.vk)
-    port_gens = copy.deepcopy(ref_gens)
-    final, final_data, levels = ref_with_generators(
-        ref_gens, RR.aggregate_proofs, children, level1.data.common, level1.data.vk, ref_cfg)
+    """The JAX package's first level (its circuit record, its proofs, where
+    it leaves the generators) and its second (its circuit record, its final
+    proof, its number of levels, where it leaves the generators), frozen;
+    the port's second level from the first's proofs and generators, proved
+    here."""
+    ref = REF.load()
+    root, proofs = ref["inner4"]["root"], ref["inner4"]["proofs"]
+    level1, children = ref["zk_level"]["circuit"], ref["zk_level"]["proofs"]
+    port_gens = generators(ref["zk_level"]["gen_states"])
+    port_cfg = port_zk_config(CommonData.from_json(ref["inner4"]["circuit"]["common"]))
     stats = []
     port_final, port_data, _ = under_native_planes(
-        TR.aggregate_proofs, children, CommonData.from_json(level1.data.common.to_json()),
-        level1.data.vk, port_cfg, device="cpu", level_stats=stats,
+        TR.aggregate_proofs, children, CommonData.from_json(level1["common"]),
+        REF.vk_of(level1), port_cfg, device="cpu", level_stats=stats,
         witness_rng=port_gens[0], salt_rng=port_gens[1])
+    tree = ref["zk_tree"]
+    final, final_data, levels = tree["proof"], tree["circuit"], tree["levels"]
+    ref_gens = generators(tree["gen_states"])
     return root, proofs, final, final_data, levels, ref_gens, port_final, port_data, port_gens, stats
 
 
 def test_zk_level_two_circuit_equals_reference(zk_tree):
     _, _, _, final_data, levels, _, _, port_data, _, stats = zk_tree
-    assert len(levels) == 1 and [st["degree_bits"] for st in stats] == [12]
+    assert levels == 1 and [st["degree_bits"] for st in stats] == [12]
     assert port_data.common.config.zero_knowledge and port_data.common.fri_params.hiding
     assert_circuits_equal(final_data, port_data)
 
@@ -69,5 +68,5 @@ def test_zk_tree_of_four_equals_reference(zk_tree):
 
 def test_zk_tree_of_four_cross_verify(zk_tree):
     _, _, final, final_data, _, _, port_final, port_data, _, _ = zk_tree
-    assert ref_verify(gl, final_data.common, final_data.vk, port_final)
+    assert ref_verify(gl, REF.common_of(final_data), REF.vk_of(final_data), port_final)
     assert port_accepts(port_data.common, port_data.vk, [final])

@@ -9,8 +9,10 @@ field under seeded generators (the JAX package's fresh
 witness, salt, witness, salt; this config draws nothing, so the match
 holds whatever they draw); the port's verify_aggregated accepts, and
 rejects a flipped nullifier, a wrong root and a forged topic; the JAX
-package's accepts the port's aggregate. Test-only adapters as in
-tests/test_torch_recursion.py."""
+package's accepts the port's aggregate. The signals, the port's aggregate
+and the JAX package's are three fixtures, and the test of the port's
+aggregate alone runs before the comparison, so that no one test bears both
+aggregates. Test-only adapters as in tests/test_torch_recursion.py."""
 import copy
 
 import numpy as np
@@ -31,7 +33,6 @@ from test_torch_recursion import under_native_planes
 
 P = gl.P
 F = gl64.Field("cpu")
-torch.set_num_threads(1)
 SEEDS = (301, 302)
 
 
@@ -57,10 +58,27 @@ def make_sets():
 
 
 @pytest.fixture(scope="module")
-def aggregated():
+def signals():
     ref_set, port_set, sks, idx, topics = make_sets()
     ref_signals = under_native_planes(ref_set.make_signals, sks[idx], topics, idx)
     port_signals = under_native_planes(port_set.make_signals, sks[idx], topics, idx)
+    return ref_set, port_set, ref_signals, port_signals
+
+
+@pytest.fixture(scope="module")
+def port_aggregate(signals):
+    _, port_set, _, port_signals = signals
+    stats = []
+    port_agg = under_native_planes(
+        TR.aggregate_signals, port_set, port_signals, config=configs()[1],
+        witness_rng=np.random.default_rng(SEEDS[0]),
+        salt_rng=np.random.default_rng(SEEDS[1]), level_stats=stats)
+    return port_agg, stats
+
+
+@pytest.fixture(scope="module")
+def ref_aggregate(signals):
+    ref_set, _, ref_signals, _ = signals
     witness_gen, salt_gen = (np.random.default_rng(s) for s in SEEDS)
     turns = iter([witness_gen, salt_gen] * 2)
     real = np.random.default_rng
@@ -68,41 +86,21 @@ def aggregated():
     try:
         mp.setattr(np.random, "default_rng",
                    lambda s=None: next(turns) if s is None else real(s))
-        ref_agg = under_native_planes(RR.aggregate_signals, ref_set, ref_signals,
-                                      config=configs()[0])
+        return under_native_planes(RR.aggregate_signals, ref_set, ref_signals,
+                                   config=configs()[0])
     finally:
         mp.undo()
-    stats = []
-    port_agg = under_native_planes(
-        TR.aggregate_signals, port_set, port_signals, config=configs()[1],
-        witness_rng=np.random.default_rng(SEEDS[0]),
-        salt_rng=np.random.default_rng(SEEDS[1]), level_stats=stats)
-    return ref_set, port_set, ref_signals, port_signals, ref_agg, port_agg, stats
 
 
-def test_signals_equal_reference(aggregated):
-    ref_set, port_set, ref_signals, port_signals, _, _, _ = aggregated
+def test_signals_equal_reference(signals):
+    ref_set, port_set, ref_signals, port_signals = signals
     assert np.array_equal(ref_set.merkle_root, port_set.merkle_root)
     assert_proofs_equal([s.proof for s in ref_signals], [s.proof for s in port_signals])
 
 
-def test_aggregate_equals_reference(aggregated):
-    _, port_set, _, port_signals, ref_agg, port_agg, stats = aggregated
-    assert [st["degree_bits"] for st in stats] == [11, 12]
-    assert_proofs_equal([ref_agg.proof], [port_agg.proof])
-    assert ref_agg.common.to_json() == port_agg.common.to_json()
-    assert np.array_equal(ref_agg.vk.circuit_digest, port_agg.vk.circuit_digest)
-    assert np.array_equal(ref_agg.nullifiers, port_agg.nullifiers)
-    assert np.array_equal(ref_agg.topics, port_agg.topics)
-    pis = port_agg.proof.public_inputs
-    assert np.array_equal(pis[:4], port_set.merkle_root)
-    for i, s in enumerate(port_signals):
-        assert np.array_equal(pis[4 + 8 * i: 12 + 8 * i],
-                              np.concatenate([s.nullifier, s.topics]))
-
-
-def test_verify_aggregated_accepts_and_rejects(aggregated):
-    _, port_set, _, _, ref_agg, port_agg, _ = aggregated
+def test_verify_aggregated_accepts_and_rejects(signals, port_aggregate):
+    _, port_set, _, _ = signals
+    port_agg, _ = port_aggregate
     root = port_set.merkle_root
     assert port_agg.device == torch.device("cpu")
     assert under_native_planes(TR.verify_aggregated, port_agg, root)
@@ -115,3 +113,20 @@ def test_verify_aggregated_accepts_and_rejects(aggregated):
     assert not TR.verify_aggregated(port_agg, root ^ np.uint64(1))
     # the JAX package's check accepts the port's aggregate
     assert under_native_planes(RR.verify_aggregated, port_agg, root)
+
+
+def test_aggregate_equals_reference(signals, port_aggregate, ref_aggregate):
+    _, port_set, _, port_signals = signals
+    port_agg, stats = port_aggregate
+    ref_agg = ref_aggregate
+    assert [st["degree_bits"] for st in stats] == [11, 12]
+    assert_proofs_equal([ref_agg.proof], [port_agg.proof])
+    assert ref_agg.common.to_json() == port_agg.common.to_json()
+    assert np.array_equal(ref_agg.vk.circuit_digest, port_agg.vk.circuit_digest)
+    assert np.array_equal(ref_agg.nullifiers, port_agg.nullifiers)
+    assert np.array_equal(ref_agg.topics, port_agg.topics)
+    pis = port_agg.proof.public_inputs
+    assert np.array_equal(pis[:4], port_set.merkle_root)
+    for i, s in enumerate(port_signals):
+        assert np.array_equal(pis[4 + 8 * i: 12 + 8 * i],
+                              np.concatenate([s.nullifier, s.topics]))

@@ -12,7 +12,6 @@ import json
 
 import numpy as np
 import pytest
-import torch
 
 from stark_verifier_tpu.models import flagship as RFS
 from stark_verifier_tpu.ops import gl64_np as gl
@@ -27,7 +26,6 @@ from stark_verifier_tpu_torch.semaphore import attestation as Tatt
 from test_torch_recursion import under_native_planes
 
 F = gl64.Field("cpu")
-torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module")

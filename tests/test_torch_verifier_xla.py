@@ -2,8 +2,11 @@
 JAX package on its u64 XLA:CPU backend, built exactly as
 tests/test_batched_verifier.py builds it, against the port's
 `verify_batched` on the same arrays, honest and corrupt. Kept to one case
-and a file of its own because the XLA:CPU compile takes about a minute."""
+and a file of its own because the XLA:CPU compile takes about a minute:
+its time_limit names it as one of the two port tests allowed past the 60 s
+budget."""
 import numpy as np
+import pytest
 
 from stark_verifier_tpu.core.types import load_proofs as jload_proofs
 from stark_verifier_tpu.models import flagship as JFS
@@ -12,6 +15,7 @@ from stark_verifier_tpu_torch.core import verifier_batched as TVB
 from stark_verifier_tpu_torch.ops import gl64 as gt
 
 
+@pytest.mark.time_limit(240)
 def test_port_matches_jitted_jax_verify_batched():
     import jax
 

@@ -52,17 +52,12 @@ def run():
     fn, to_device = TFS.make_verifier_fn_batched(common, vk, device="cpu")
     pa = to_device(batched)
     vk_cap, digest = F.from_u64(vk.constants_sigmas_cap), F.from_u64(vk.circuit_digest)
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)   # the tensors are small: more threads only cost
-    try:
-        pi_hash, ch = TV.phase_challenges(F, common, digest, pa,
-                                          permute=counting_bridge, batch=(B,))
-        transcript_calls = len(bridge)
-        ok = TV.phase_vanishing(F, common, pa, pi_hash, ch)
-        ok = TV.phase_fri(F, common, vk_cap, pa, ch, ok, permute=counting_bridge,
-                          batch=(B,))
-    finally:
-        torch.set_num_threads(threads)
+    pi_hash, ch = TV.phase_challenges(F, common, digest, pa,
+                                      permute=counting_bridge, batch=(B,))
+    transcript_calls = len(bridge)
+    ok = TV.phase_vanishing(F, common, pa, pi_hash, ch)
+    ok = TV.phase_fri(F, common, vk_cap, pa, ch, ok, permute=counting_bridge,
+                      batch=(B,))
     return dict(common=common, jcommon=jcommon, jvk=jvk, batched=batched, pa=pa,
                 digest=digest, pi_hash=pi_hash, ch=ch, ok=ok.numpy(),
                 bridge=bridge, transcript_calls=transcript_calls)
